@@ -1,0 +1,227 @@
+"""Layer library: the sequential-plan interpreter plus attribute conditioning
+(port of ``imagecfgen_tpu/models/layers.py``).
+
+A *plan* is a tuple of op descriptors (all shapes NHWC):
+
+- ``("conv",  features, kernel, stride, padding)``
+- ``("convT", features, kernel, stride, padding[, output_padding])``
+- ``("lrelu", slope)``, ``("tanh",)``, ``("sigmoid",)``
+- ``("bn",)``            batch norm on running statistics (eval)
+- ``("drop2d", rate)`` / ``("drop", rate)``   identity in eval
+- ``("dense", features)``
+- ``("flatten",)`` / ``("reshape", (h, w, c))``
+
+PyTorch needs parameter shapes up front, so :class:`PlanSequential` walks
+the plan from a given input shape. Parameter names follow the JAX package
+(``conv_0_kernel``, ``convT_1_bias``, ``dense_0_kernel``, ``bn_0``); kernels
+are stored in PyTorch's layouts (see :mod:`..ops.conv`), dense kernels as
+``(out, in)``. This slice runs the plans in eval mode only.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..core.attributes import AttributeSpec
+from ..device import DeviceLike, resolve_device
+from ..ops.conv import (
+    _pair,
+    conv2d,
+    conv_out_size,
+    conv_transpose2d,
+    conv_transpose_out_size,
+)
+
+Plan = Tuple[Tuple[Any, ...], ...]
+
+
+def _kernel_init(shape, std, fan_in: int, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """N(0, std), or flax's ``lecun_normal`` (truncated, variance 1/fan_in)
+    when ``std`` is None — the JAX package's ``conv_kernel_init``."""
+    t = torch.empty(shape)
+    if std is None:
+        s = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        return nn.init.trunc_normal_(t, 0.0, s, -2 * s, 2 * s, generator=rng)
+    return nn.init.normal_(t, 0.0, std, generator=rng)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over N,H,W with running statistics (flax eval semantics)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) + self.bias
+
+
+class PlanSequential(nn.Module):
+    """Interpret a plan of op descriptors as a sequential network."""
+
+    def __init__(
+        self,
+        plan: Plan,
+        in_shape: Tuple[int, ...],
+        init_std: Any = 0.01,
+        device: DeviceLike = None,
+        rng: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.plan = tuple(plan)
+        shape = tuple(in_shape)
+        conv_i = bn_i = dense_i = 0
+        for op in self.plan:
+            kind = op[0]
+            if kind in ("conv", "convT"):
+                h, w, c = shape
+                feats = op[1]
+                (kh, kw), (sh, sw), (ph, pw) = _pair(op[2]), _pair(op[3]), _pair(op[4])
+                if kind == "conv":
+                    wshape = (feats, c, kh, kw)
+                    shape = (conv_out_size(h, kh, sh, ph), conv_out_size(w, kw, sw, pw), feats)
+                else:
+                    oph, opw = _pair(op[5] if len(op) > 5 else 0)
+                    wshape = (c, feats, kh, kw)
+                    shape = (
+                        conv_transpose_out_size(h, kh, sh, ph, oph),
+                        conv_transpose_out_size(w, kw, sw, pw, opw),
+                        feats,
+                    )
+                kernel = _kernel_init(wshape, init_std, kh * kw * c, rng)
+                self.register_parameter(f"{kind}_{conv_i}_kernel", nn.Parameter(kernel))
+                self.register_parameter(f"{kind}_{conv_i}_bias", nn.Parameter(torch.zeros(feats)))
+                conv_i += 1
+            elif kind == "dense":
+                fan_in = shape[-1]
+                kernel = _kernel_init((op[1], fan_in), None, fan_in, rng)
+                self.register_parameter(f"dense_{dense_i}_kernel", nn.Parameter(kernel))
+                self.register_parameter(f"dense_{dense_i}_bias", nn.Parameter(torch.zeros(op[1])))
+                shape = (*shape[:-1], op[1])
+                dense_i += 1
+            elif kind == "bn":
+                self.add_module(f"bn_{bn_i}", BatchNorm(shape[-1]))
+                bn_i += 1
+            elif kind == "flatten":
+                shape = (math.prod(shape),)
+            elif kind == "reshape":
+                shape = tuple(op[1])
+            elif kind not in ("lrelu", "tanh", "sigmoid", "drop2d", "drop"):
+                raise ValueError(f"unknown plan op {op!r}")
+        self.out_shape = shape
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv_i = bn_i = dense_i = 0
+        for op in self.plan:
+            kind = op[0]
+            if kind == "conv" or kind == "convT":
+                kernel = getattr(self, f"{kind}_{conv_i}_kernel")
+                bias = getattr(self, f"{kind}_{conv_i}_bias")
+                if kind == "conv":
+                    x = conv2d(x, kernel, op[3], op[4]) + bias
+                else:
+                    outpad = op[5] if len(op) > 5 else 0
+                    x = conv_transpose2d(x, kernel, op[3], op[4], output_padding=outpad) + bias
+                conv_i += 1
+            elif kind == "lrelu":
+                x = F.leaky_relu(x, op[1])
+            elif kind == "tanh":
+                x = torch.tanh(x)
+            elif kind == "sigmoid":
+                x = torch.sigmoid(x)
+            elif kind == "bn":
+                x = getattr(self, f"bn_{bn_i}")(x)
+                bn_i += 1
+            elif kind == "dense":
+                x = F.linear(
+                    x, getattr(self, f"dense_{dense_i}_kernel"), getattr(self, f"dense_{dense_i}_bias")
+                )
+                dense_i += 1
+            elif kind == "flatten":
+                x = x.reshape(x.shape[0], -1)
+            elif kind == "reshape":
+                x = x.reshape(x.shape[0], *op[1])
+            # "drop2d" / "drop": identity in eval
+        return x
+
+
+class AttributeChannels(nn.Module):
+    """Render a conditioning dict as image channels (encoder side).
+
+    Categorical attributes: embedding -> reshape ``embed_hw`` -> nearest
+    upsample to the image size (``out[i] = in[floor(i*S/T)]``) -> tanh, one
+    channel each. Continuous attributes: a constant channel. Channel order:
+    image, categorical, continuous, each in sorted-name order.
+    """
+
+    def __init__(
+        self,
+        spec: AttributeSpec,
+        image_size: Tuple[int, int],
+        embed_dim: int = 256,
+        embed_hw: Tuple[int, int] = (16, 16),
+        device: DeviceLike = None,
+        rng: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.spec = spec
+        self.image_size = tuple(image_size)
+        self.embed_hw = tuple(embed_hw)
+        for a in spec.categorical:
+            table = nn.init.normal_(torch.empty(a.n_categories, embed_dim), generator=rng)
+            self.register_parameter(f"embed_{a.name}", nn.Parameter(table))
+        self.to(resolve_device(device))
+
+    def forward(self, x: torch.Tensor, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        h, w = self.image_size
+        eh, ew = self.embed_hw
+        b = x.shape[0]
+        chans = [x.float()]
+        rows = torch.arange(h, device=x.device) * eh // h
+        cols = torch.arange(w, device=x.device) * ew // w
+        for a in self.spec.categorical:
+            idx = torch.argmax(attrs[a.name], dim=-1)
+            m = getattr(self, f"embed_{a.name}")[idx].reshape(b, eh, ew, 1)
+            chans.append(torch.tanh(m[:, rows][:, :, cols]))
+        for a in self.spec.continuous:
+            v = attrs[a.name].reshape(b, 1, 1, 1).float()
+            chans.append(v.expand(b, h, w, 1))
+        return torch.cat(chans, dim=-1)
+
+
+class AttributeVectors(nn.Module):
+    """Render a conditioning dict as a flat feature vector (generator side).
+
+    Categorical attributes are a *soft* ``one_hot @ table`` so convex
+    mixtures of classes flow through the decoder; continuous attributes add
+    one scalar each. Order: categorical then continuous, sorted by name.
+    """
+
+    def __init__(
+        self,
+        spec: AttributeSpec,
+        embed_dim: int = 256,
+        device: DeviceLike = None,
+        rng: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.spec = spec
+        for a in spec.categorical:
+            table = nn.init.normal_(torch.empty(a.n_categories, embed_dim), generator=rng)
+            self.register_parameter(f"embed_{a.name}", nn.Parameter(table))
+        self.to(resolve_device(device))
+
+    def forward(self, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        feats = [attrs[a.name].float() @ getattr(self, f"embed_{a.name}") for a in self.spec.categorical]
+        feats += [attrs[a.name].reshape(-1, 1).float() for a in self.spec.continuous]
+        return torch.cat(feats, dim=-1)
