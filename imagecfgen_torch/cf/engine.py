@@ -67,17 +67,20 @@ class CounterfactualEngine:
         attrs: Mapping,
         interventions: Mapping,
         rng: Optional[torch.Generator] = None,
+        noise: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``x``: (B,H,W,C) in [-1,1]; ``attrs``: raw (unscaled) model attr
         dict; ``interventions``: graph-convention values (int codes for
         categoricals, (B,1) floats for continuous), applied in sorted-name
-        order. ``rng`` draws any node the observation leaves out. Returns
-        (x_cf, cf attr dict in model convention, raw units)."""
+        order. ``rng`` draws any node the observation leaves out and the
+        abduction's Gumbels; ``noise`` injects the latter per node (see
+        ``CausalGraph.recover_noise``). Returns (x_cf, cf attr dict in model
+        convention, raw units)."""
         x = self._tensor(x)
         attrs = {k: self._tensor(v) for k, v in attrs.items()}
         iv = {k: self._tensor(interventions[k]) for k in sorted(interventions)}
         cf_obs = self.scm.graph.sample_cf(
-            self.scm.params, self.scm.state, rng, self._to_graph_obs(attrs), iv
+            self.scm.params, self.scm.state, rng, self._to_graph_obs(attrs), iv, noise
         )
         cf_attrs = self._to_model_attrs(cf_obs)
         z = self.bigan.encoder(x, self.scaler.scale(attrs))

@@ -1,8 +1,8 @@
 """Carry weights from the JAX package into the port.
 
-Both functions take the JAX package's trees as nested dicts (and lists and
-tuples) of numpy arrays — ``jax.device_get`` of a flax param tree or of
-``MNISTAttributeSCM.state_dict()`` — so this module needs neither JAX nor
+Every function takes the JAX package's trees as nested dicts (and lists and
+tuples) of numpy arrays — ``jax.device_get`` of a flax param tree or of an
+attribute SCM's ``state_dict()`` — so this module needs neither JAX nor
 flax. Layout changes:
 
 - conv kernel HWIO -> ``(O, I, kH, kW)``;
@@ -12,7 +12,9 @@ flax. Layout changes:
 - dense kernel ``(in, out)`` -> ``(out, in)``;
 - ``attr_channels/embed_<name>/embedding`` and ``attr_vectors/embed_<name>``
   -> the tables of the same names;
-- ``bn_i`` scale/bias (params) and mean/var (batch stats) -> ``bn_i``.
+- ``bn_i`` scale/bias (params) and mean/var (batch stats) -> ``bn_i``;
+- attribute-SCM trees (flows, MLP layer lists ``[{"w": (in, out), "b"}]``,
+  categorical logits) carry across leaf for leaf.
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ import torch
 
 from ..device import DeviceLike
 from ..models.bigan import BiGAN, BiGANConfig
+from ..models.classifier import ClassifierConfig, CNNClassifier
 from ..ops.conv import kernel_from_hwio, kernel_transpose_from_hwio
+from ..scm.audio_mnist import AudioMNISTAttributeSCM
 from ..scm.mnist import MNISTAttributeSCM
 
 
@@ -81,3 +85,20 @@ def scm_from_jax_state_dict(sd: Mapping, device: DeviceLike = None) -> MNISTAttr
     """The numpy form of the JAX ``MNISTAttributeSCM.state_dict()`` -> the
     port's SCM (the trees have the same structure, leaf for leaf)."""
     return MNISTAttributeSCM.from_state_dict(sd, device)
+
+
+def classifier_params_from_jax(
+    params: Mapping, cfg: ClassifierConfig, device: DeviceLike = None
+) -> CNNClassifier:
+    """A port ``CNNClassifier`` for ``cfg`` holding the JAX classifier's
+    params (its ``trunk`` tree)."""
+    model = CNNClassifier(cfg, device)
+    model.trunk.load_state_dict(plan_state_dict_from_jax(params["trunk"]))
+    return model
+
+
+def audio_scm_from_jax_state_dict(sd: Mapping, device: DeviceLike = None) -> AudioMNISTAttributeSCM:
+    """The numpy form of the JAX ``AudioMNISTAttributeSCM.state_dict()`` ->
+    the port's SCM (the MLP layer lists have the port's ``_mlp_init``
+    layout, leaf for leaf)."""
+    return AudioMNISTAttributeSCM.from_state_dict(sd, device)

@@ -2,7 +2,9 @@
 (port of ``imagecfgen_tpu/models/bigan.py``).
 
 - ``Encoder``:  image ++ attribute channels -> conv plan -> (B,1,1,latent)
-- ``Generator``: latent ++ attribute vector -> deconv plan -> image in [-1,1]
+- ``Generator``: latent ++ attribute vector -> either a 1x1-spatial deconv
+  plan (``gen_input="spatial"``, MNIST) or a dense-stem plan
+  (``gen_input="dense"``, AudioMNIST) -> image in [-1,1]
 
 The one deviation from the JAX wiring: when the encoder plan is conv and
 LeakyReLU only, ``Encoder`` runs its trunk through
@@ -10,9 +12,9 @@ LeakyReLU only, ``Encoder`` runs its trunk through
 on the card, its plain version on the CPU — where the JAX ``Encoder`` runs
 ``PlanSequential``. The function is the same.
 
-This slice carries ``mnist_bigan_config``'s encoder and generator; the
-discriminator (and its plans), the dense-stem generator input and the other
-domains' configs come with later slices.
+This slice carries the encoders and generators of ``mnist_bigan_config``
+and ``audio_mnist_bigan_config``; the discriminator (and its plans) and the
+other domains' configs come with later slices.
 """
 from __future__ import annotations
 
@@ -39,6 +41,9 @@ class BiGANConfig:
     embed_dim: int = 256
     embed_hw: Tuple[int, int] = (16, 16)
     init_std: float = 0.01
+    # "spatial": attribute vector becomes 1x1 channels next to z (MNIST style)
+    # "dense":   z ++ attrs flattened into the plan's dense stem (audio style)
+    gen_input: str = "spatial"
 
 
 class Encoder(nn.Module):
@@ -72,13 +77,23 @@ class Generator(nn.Module):
         spec = cfg.attr_spec
         self.attr_vectors = AttributeVectors(spec, cfg.embed_dim, device, rng)
         in_feats = cfg.latent_dim + cfg.embed_dim * len(spec.categorical) + len(spec.continuous)
-        self.trunk = PlanSequential(cfg.gen_plan, (1, 1, in_feats), cfg.init_std, device, rng)
+        if cfg.gen_input == "spatial":
+            in_shape = (1, 1, in_feats)
+        elif cfg.gen_input == "dense":
+            in_shape = (in_feats,)
+        else:
+            raise ValueError(f"unknown gen_input {cfg.gen_input!r}")
+        self.trunk = PlanSequential(cfg.gen_plan, in_shape, cfg.init_std, device, rng)
 
     def forward(self, z: torch.Tensor, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The attribute vector joins z as 1x1 channels (the MNIST input)."""
+        """The attribute vector joins z as 1x1 channels ("spatial") or as
+        the tail of one flat vector ("dense")."""
         b = z.shape[0]
         vec = self.attr_vectors(attrs)
-        feats = torch.cat([z.reshape(b, 1, 1, -1).float(), vec.reshape(b, 1, 1, -1)], dim=-1)
+        if self.cfg.gen_input == "spatial":
+            feats = torch.cat([z.reshape(b, 1, 1, -1).float(), vec.reshape(b, 1, 1, -1)], dim=-1)
+        else:
+            feats = torch.cat([z.reshape(b, -1).float(), vec], dim=-1)
         return self.trunk(feats)
 
 
@@ -122,4 +137,47 @@ def mnist_bigan_config(latent_dim: int = 512) -> BiGANConfig:
         enc_plan=enc_plan,
         gen_plan=gen_plan,
         init_std=0.01,
+    )
+
+
+AUDIO_MNIST_SPEC = AttributeSpec.create(
+    accent=15, age=5, country_of_origin=13, digit=10, gender=2, native_speaker=2
+)
+
+
+def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512) -> BiGANConfig:
+    """128x128 AudioMNIST spectrogram config: the same plans as the JAX
+    package's ``audio_mnist_bigan_config``. Six categorical attributes, each
+    embedded to a 128^2 channel; the encoder is six k5/s2/p1 convs
+    128 -> 63 -> 31 -> 15 -> 7 -> 3 -> 1; the generator is a dense stem
+    (512 + 6*256 -> 256d) -> (4,4,16d) -> five k5/s2/p2(+1) deconvs doubling
+    4 -> 128; LeakyReLU 0.2, init N(0, 0.001)."""
+    lr = ("lrelu", 0.2)
+    enc_plan = (
+        ("conv", d, 5, 2, 1), lr,
+        ("conv", 2 * d, 5, 2, 1), lr,
+        ("conv", 4 * d, 5, 2, 1), lr,
+        ("conv", 8 * d, 5, 2, 1), lr,
+        ("conv", 16 * d, 5, 2, 1), lr,
+        ("conv", latent_dim, 5, 2, 1),
+    )
+    gen_plan = (
+        ("dense", 256 * d),
+        ("reshape", (4, 4, 16 * d)), lr,
+        ("convT", 8 * d, 5, 2, 2, 1), lr,
+        ("convT", 4 * d, 5, 2, 2, 1), lr,
+        ("convT", 2 * d, 5, 2, 2, 1), lr,
+        ("convT", d, 5, 2, 2, 1), lr,
+        ("convT", 1, 5, 2, 2, 1),
+        ("tanh",),
+    )
+    return BiGANConfig(
+        image_size=(128, 128),
+        image_channels=1,
+        latent_dim=latent_dim,
+        attr_spec=AUDIO_MNIST_SPEC,
+        enc_plan=enc_plan,
+        gen_plan=gen_plan,
+        init_std=0.001,
+        gen_input="dense",
     )

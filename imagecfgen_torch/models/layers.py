@@ -16,6 +16,11 @@ the plan from a given input shape. Parameter names follow the JAX package
 (``conv_0_kernel``, ``convT_1_bias``, ``dense_0_kernel``, ``bn_0``); kernels
 are stored in PyTorch's layouts (see :mod:`..ops.conv`), dense kernels as
 ``(out, in)``. This slice runs the plans in eval mode only.
+
+As in the JAX package, a ``dense`` op directly followed by ``lrelu`` runs as
+one ``ops.fused_dense.fused_dense_lrelu`` call (the hand-written CUDA kernel
+on the card, its plain version on the CPU); a lone ``dense`` is
+``F.linear``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from ..ops.conv import (
     conv_transpose2d,
     conv_transpose_out_size,
 )
+from ..ops.fused_dense import fused_dense_lrelu
 
 Plan = Tuple[Tuple[Any, ...], ...]
 
@@ -122,9 +128,22 @@ class PlanSequential(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv_i = bn_i = dense_i = 0
-        for op in self.plan:
+        skip_next = False
+        for idx, op in enumerate(self.plan):
+            if skip_next:
+                skip_next = False
+                continue
             kind = op[0]
-            if kind == "conv" or kind == "convT":
+            if kind == "dense" and idx + 1 < len(self.plan) and self.plan[idx + 1][0] == "lrelu":
+                kernel = getattr(self, f"dense_{dense_i}_kernel")
+                bias = getattr(self, f"dense_{dense_i}_bias")
+                lead = x.shape[:-1]
+                y = fused_dense_lrelu(x.reshape(-1, x.shape[-1]).contiguous(), kernel, bias,
+                                      self.plan[idx + 1][1])
+                x = y.reshape(*lead, y.shape[-1])
+                dense_i += 1
+                skip_next = True
+            elif kind == "conv" or kind == "convT":
                 kernel = getattr(self, f"{kind}_{conv_i}_kernel")
                 bias = getattr(self, f"{kind}_{conv_i}_bias")
                 if kind == "conv":

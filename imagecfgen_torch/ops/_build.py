@@ -38,24 +38,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    if not out.exists():
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_libraries(*names: str) -> None:
+    """Compile every missing ``csrc/<name>.cu`` of ``names`` with one
+    ``nvcc`` each, all started together, then load them."""
+    builds = []
+    for name in names:
+        out = _target(name)
+        if name in _LIBS or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in builds:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
         os.replace(tmp, out)
-        BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
-    _LIBS[name] = ctypes.CDLL(str(out))
+        BUILD_LOG[name] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_target(name)))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
+    if name not in _LIBS:
+        load_libraries(name)
     return _LIBS[name]

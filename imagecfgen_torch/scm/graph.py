@@ -103,10 +103,15 @@ class CausalGraph:
             lp[v], new_state[v] = self.modules[v].log_prob(params[v], state[v], obs[v], ctx, train=train)
         return lp, new_state
 
-    def recover_noise(self, params, state, rng, obs: Mapping[str, torch.Tensor]):
-        """Abduction for every fully-observed node."""
+    def recover_noise(self, params, state, rng, obs: Mapping[str, torch.Tensor],
+                      noise: Optional[Mapping[str, torch.Tensor]] = None):
+        """Abduction for every fully-observed node; ``noise`` injects the
+        prior draw that the abduction of chosen nodes conditions (the
+        Gumbels of a conditional categorical)."""
+        noise = noise or {}
         return {
-            v: self.modules[v].recover_noise(params[v], state[v], rng, obs[v], self._context(v, obs))
+            v: self.modules[v].recover_noise(
+                params[v], state[v], rng, obs[v], self._context(v, obs), noise.get(v))
             for v in self._observed(obs)
         }
 
@@ -141,8 +146,10 @@ class CausalGraph:
         rng: Optional[torch.Generator],
         obs: Mapping[str, torch.Tensor],
         interventions: Mapping[str, torch.Tensor],
+        noise: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        """Abduct-act-predict:
+        """Abduct-act-predict (``noise``: injected abduction draws, as for
+        ``recover_noise``):
 
         1. complete partial observations by ancestral sampling,
         2. abduct exogenous noise for every node,
@@ -151,7 +158,7 @@ class CausalGraph:
            abducted noise under the new parent values.
         """
         obs = self.sample(params, state, rng, obs)
-        noise = self.recover_noise(params, state, rng, obs)
+        noise = self.recover_noise(params, state, rng, obs, noise)
         out = dict(interventions)
         for v in self.top_sort():
             if v in out:

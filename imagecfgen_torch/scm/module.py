@@ -9,9 +9,9 @@ Value conventions: continuous node values are ``(B, 1)`` float; categorical
 node values are ``(B,)`` int64. Parent values arrive as one context tensor
 assembled by the graph (one-hot for categorical parents).
 
-``sample`` takes a ``torch.Generator`` and, for tests, ``noise``: the
-exogenous draw to use instead (the base ``u`` of a flow, the Gumbels of a
-categorical).
+``sample`` and ``recover_noise`` take a ``torch.Generator`` and ``noise``:
+the exogenous draw to use instead (the base ``u`` of a flow, the Gumbels of
+a categorical), so that tests can hand both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -19,8 +19,10 @@ import dataclasses
 from typing import Any, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..flows.distributions import Categorical, FlowDist
+from ..flows.bijectors import _mlp_apply, _mlp_init
+from ..flows.distributions import Categorical, FlowDist, Gumbel
 
 
 class CausalModule:
@@ -31,7 +33,7 @@ class CausalModule:
     def init(self, rng=None) -> Tuple[Any, Any]:
         raise NotImplementedError
 
-    def recover_noise(self, params, state, rng, value, context) -> torch.Tensor:
+    def recover_noise(self, params, state, rng, value, context, noise=None) -> torch.Tensor:
         raise NotImplementedError
 
     def generate(self, params, state, noise, context) -> torch.Tensor:
@@ -59,7 +61,7 @@ class FlowCM(CausalModule):
     def _ctx(self, context):
         return context if self.conditional else None
 
-    def recover_noise(self, params, state, rng, value, context):
+    def recover_noise(self, params, state, rng, value, context, noise=None):
         u, _ = self.flow.inverse(params, value, self._ctx(context), state=state)
         return u
 
@@ -95,7 +97,7 @@ class CategoricalCM(CausalModule):
     def init(self, rng=None):
         return {"logits": torch.zeros(self.n)}, {}
 
-    def recover_noise(self, params, state, rng, value, context):
+    def recover_noise(self, params, state, rng, value, context, noise=None):
         return value
 
     def generate(self, params, state, noise, context):
@@ -106,3 +108,56 @@ class CategoricalCM(CausalModule):
 
     def sample(self, params, state, rng, context, n, device=None, noise=None):
         return Categorical(self.n).sample(rng, params["logits"], n, gumbel=noise)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConditionalCategoricalCM(CausalModule):
+    """Categorical mechanism with MLP logits and Gumbel-max counterfactuals.
+
+    ``generate(noise, ctx) = argmax(logits(ctx) + noise)`` with Gumbel noise;
+    ``recover_noise`` draws from the *posterior* over the Gumbels given the
+    observed class: the observed class receives the max, all others are
+    truncated below it (the JAX package's formula).
+    """
+
+    n: int
+    context_dim: int
+    hidden: Tuple[int, ...] = (64, 64)
+
+    @property
+    def categorical(self):
+        return True
+
+    @property
+    def n_categories(self):
+        return self.n
+
+    def init(self, rng=None):
+        return {"mlp": _mlp_init(rng, (self.context_dim, *self.hidden, self.n))}, {}
+
+    def logits(self, params, context):
+        return _mlp_apply(params["mlp"], context)
+
+    def recover_noise(self, params, state, rng, value, context, noise=None):
+        """``noise``: the ``(B, n)`` prior Gumbels to condition (drawn from
+        ``rng`` when None)."""
+        logits = self.logits(params, context)
+        y = value.reshape(-1, 1).long()
+        g = Gumbel().sample(rng, logits.shape, logits.device) if noise is None else noise
+        gk = torch.gather(g, 1, y)
+        logits_k = torch.gather(logits, 1, y)
+        # max value of logits + noise, shifted to the observed class
+        noise_k = gk + torch.logsumexp(logits, dim=1, keepdim=True) - logits_k
+        # remaining classes: Gumbels truncated below the observed max
+        noise_l = -torch.log(torch.exp(-g - logits) + torch.exp(-gk - logits_k)) - logits
+        onehot = F.one_hot(y[:, 0], self.n).to(logits.dtype)
+        return onehot * noise_k + (1.0 - onehot) * noise_l
+
+    def generate(self, params, state, noise, context):
+        return torch.argmax(self.logits(params, context) + noise, dim=1)
+
+    def log_prob(self, params, state, value, context, train=False):
+        return Categorical(self.n).log_prob(self.logits(params, context), value), state
+
+    def sample(self, params, state, rng, context, n, device=None, noise=None):
+        return Categorical(self.n).sample(rng, self.logits(params, context), gumbel=noise)

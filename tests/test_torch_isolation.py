@@ -89,6 +89,27 @@ def test_builders_without_device_raise_when_no_gpu(monkeypatch, builder):
             getattr(bigan, builder)(bigan.mnist_bigan_config(64))
 
 
+@pytest.mark.parametrize("entry", ["CNNClassifier", "audio_BiGAN", "audio_scm", "generator_score"])
+def test_audio_slice_without_device_raises_when_no_gpu(monkeypatch, entry):
+    from imagecfgen_torch.metrics.scores import generator_score
+    from imagecfgen_torch.models.bigan import BiGAN, audio_mnist_bigan_config
+    from imagecfgen_torch.models.classifier import CNNClassifier, audio_mnist_classifier_config
+    from imagecfgen_torch.scm.audio_mnist import AudioMNISTAttributeSCM, build_audio_mnist_graph
+
+    graph = build_audio_mnist_graph()
+    scm = AudioMNISTAttributeSCM(graph, *graph.init(None, "cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "CNNClassifier":
+            CNNClassifier(audio_mnist_classifier_config(10, width=0.125))
+        elif entry == "audio_BiGAN":
+            BiGAN(audio_mnist_bigan_config(8, 64))
+        elif entry == "audio_scm":
+            AudioMNISTAttributeSCM.from_state_dict(scm.state_dict())
+        else:
+            generator_score(None, None, scm, None, None, n=4)
+
+
 def test_resolve_device():
     from imagecfgen_torch import resolve_device
 
