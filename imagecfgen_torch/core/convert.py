@@ -15,6 +15,10 @@ flax. Layout changes:
 - ``bn_i`` scale/bias (params) and mean/var (batch stats) -> ``bn_i``;
 - attribute-SCM trees (flows, MLP layer lists ``[{"w": (in, out), "b"}]``,
   categorical logits) carry across leaf for leaf.
+
+Parameters are float32 in both packages whatever a config's
+``compute_dtype`` is (it only casts them for the forward), so nothing here
+depends on it.
 """
 from __future__ import annotations
 

@@ -41,6 +41,9 @@ class BiGANConfig:
     embed_dim: int = 256
     embed_hw: Tuple[int, int] = (16, 16)
     init_std: float = 0.01
+    # float32 or bfloat16: the type of the forward's activations and cast
+    # weights (parameters stay float32; outputs return as float32)
+    compute_dtype: torch.dtype = torch.float32
     # "spatial": attribute vector becomes 1x1 channels next to z (MNIST style)
     # "dense":   z ++ attrs flattened into the plan's dense stem (audio style)
     gen_input: str = "spatial"
@@ -54,18 +57,18 @@ class Encoder(nn.Module):
         self.cfg = cfg
         spec = cfg.attr_spec
         self.attr_channels = AttributeChannels(
-            spec, cfg.image_size, cfg.embed_dim, cfg.embed_hw, device, rng
+            spec, cfg.image_size, cfg.embed_dim, cfg.embed_hw, device, rng, cfg.compute_dtype
         )
         in_ch = cfg.image_channels + len(spec.categorical) + len(spec.continuous)
         self.trunk = PlanSequential(
-            cfg.enc_plan, (*cfg.image_size, in_ch), cfg.init_std, device, rng
+            cfg.enc_plan, (*cfg.image_size, in_ch), cfg.init_std, device, rng, cfg.compute_dtype
         )
         plan_conv_ops(cfg.enc_plan)  # the trunk must be conv/LeakyReLU only
 
     def forward(self, x: torch.Tensor, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
         feats = self.attr_channels(x, attrs)
-        z = fused_encoder_forward(dict(self.trunk.named_parameters()), feats, self.cfg.enc_plan)
-        return z.reshape(z.shape[0], *self.trunk.out_shape)
+        z = fused_encoder_forward(self.trunk.cast_parameters(), feats, self.cfg.enc_plan)
+        return z.reshape(z.shape[0], *self.trunk.out_shape).float()
 
 
 class Generator(nn.Module):
@@ -75,7 +78,7 @@ class Generator(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         spec = cfg.attr_spec
-        self.attr_vectors = AttributeVectors(spec, cfg.embed_dim, device, rng)
+        self.attr_vectors = AttributeVectors(spec, cfg.embed_dim, device, rng, cfg.compute_dtype)
         in_feats = cfg.latent_dim + cfg.embed_dim * len(spec.categorical) + len(spec.continuous)
         if cfg.gen_input == "spatial":
             in_shape = (1, 1, in_feats)
@@ -83,18 +86,20 @@ class Generator(nn.Module):
             in_shape = (in_feats,)
         else:
             raise ValueError(f"unknown gen_input {cfg.gen_input!r}")
-        self.trunk = PlanSequential(cfg.gen_plan, in_shape, cfg.init_std, device, rng)
+        self.trunk = PlanSequential(cfg.gen_plan, in_shape, cfg.init_std, device, rng,
+                                    cfg.compute_dtype)
 
     def forward(self, z: torch.Tensor, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The attribute vector joins z as 1x1 channels ("spatial") or as
         the tail of one flat vector ("dense")."""
         b = z.shape[0]
+        cd = self.cfg.compute_dtype
         vec = self.attr_vectors(attrs)
         if self.cfg.gen_input == "spatial":
-            feats = torch.cat([z.reshape(b, 1, 1, -1).float(), vec.reshape(b, 1, 1, -1)], dim=-1)
+            feats = torch.cat([z.reshape(b, 1, 1, -1).to(cd), vec.reshape(b, 1, 1, -1)], dim=-1)
         else:
-            feats = torch.cat([z.reshape(b, -1).float(), vec], dim=-1)
-        return self.trunk(feats)
+            feats = torch.cat([z.reshape(b, -1).to(cd), vec], dim=-1)
+        return self.trunk(feats).float()
 
 
 class BiGAN(nn.Module):
@@ -109,7 +114,8 @@ class BiGAN(nn.Module):
         self.generator = Generator(cfg, device, rng)
 
 
-def mnist_bigan_config(latent_dim: int = 512) -> BiGANConfig:
+def mnist_bigan_config(latent_dim: int = 512,
+                       compute_dtype: torch.dtype = torch.float32) -> BiGANConfig:
     """28x28 Morpho-MNIST config: the same plans as the JAX package's
     ``mnist_bigan_config`` (5-conv encoder to a (1,1,latent) code, 5-deconv
     generator, LeakyReLU 0.2, init N(0, 0.01))."""
@@ -137,6 +143,7 @@ def mnist_bigan_config(latent_dim: int = 512) -> BiGANConfig:
         enc_plan=enc_plan,
         gen_plan=gen_plan,
         init_std=0.01,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -145,7 +152,8 @@ AUDIO_MNIST_SPEC = AttributeSpec.create(
 )
 
 
-def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512) -> BiGANConfig:
+def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512,
+                             compute_dtype: torch.dtype = torch.float32) -> BiGANConfig:
     """128x128 AudioMNIST spectrogram config: the same plans as the JAX
     package's ``audio_mnist_bigan_config``. Six categorical attributes, each
     embedded to a 128^2 channel; the encoder is six k5/s2/p1 convs
@@ -179,5 +187,6 @@ def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512) -> BiGANConfig:
         enc_plan=enc_plan,
         gen_plan=gen_plan,
         init_std=0.001,
+        compute_dtype=compute_dtype,
         gen_input="dense",
     )

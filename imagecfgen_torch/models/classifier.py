@@ -27,6 +27,7 @@ class ClassifierConfig:
     image_channels: int = 1
     n_classes: int = 10
     init_std: Any = None  # None: lecun-normal (fan-in) init
+    compute_dtype: torch.dtype = torch.float32  # parameters stay float32
 
 
 class CNNClassifier(nn.Module):
@@ -38,11 +39,12 @@ class CNNClassifier(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.trunk = PlanSequential(
-            cfg.plan, (*cfg.image_size, cfg.image_channels), cfg.init_std, device, rng
+            cfg.plan, (*cfg.image_size, cfg.image_channels), cfg.init_std, device, rng,
+            cfg.compute_dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.trunk(x.float()).float()
+        return self.trunk(x).float()
 
 
 def mnist_classifier_config() -> ClassifierConfig:

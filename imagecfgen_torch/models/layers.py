@@ -21,6 +21,11 @@ As in the JAX package, a ``dense`` op directly followed by ``lrelu`` runs as
 one ``ops.fused_dense.fused_dense_lrelu`` call (the hand-written CUDA kernel
 on the card, its plain version on the CPU); a lone ``dense`` is
 ``F.linear``.
+
+``compute_dtype`` (float32 or bfloat16) has the JAX package's semantics:
+parameters stay float32 and are cast for the forward (the casts are cached
+per parameter, ``ops.tensor_core.cast_cached``), activations stay in the
+compute type end to end, and the callers return float32.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from ..ops.conv import (
     conv_transpose_out_size,
 )
 from ..ops.fused_dense import fused_dense_lrelu
+from ..ops.tensor_core import cast_cached
 
 Plan = Tuple[Tuple[Any, ...], ...]
 
@@ -80,10 +86,12 @@ class PlanSequential(nn.Module):
         init_std: Any = 0.01,
         device: DeviceLike = None,
         rng: Optional[torch.Generator] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         device = resolve_device(device)
         self.plan = tuple(plan)
+        self.compute_dtype = compute_dtype
         shape = tuple(in_shape)
         conv_i = bn_i = dense_i = 0
         for op in self.plan:
@@ -126,7 +134,13 @@ class PlanSequential(nn.Module):
         self.out_shape = shape
         self.to(device)
 
+    def cast_parameters(self) -> dict:
+        """The parameters by name, in the compute type."""
+        return {k: cast_cached(v, self.compute_dtype) for k, v in self.named_parameters()}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        x = x.to(cd)
         conv_i = bn_i = dense_i = 0
         skip_next = False
         for idx, op in enumerate(self.plan):
@@ -135,8 +149,8 @@ class PlanSequential(nn.Module):
                 continue
             kind = op[0]
             if kind == "dense" and idx + 1 < len(self.plan) and self.plan[idx + 1][0] == "lrelu":
-                kernel = getattr(self, f"dense_{dense_i}_kernel")
-                bias = getattr(self, f"dense_{dense_i}_bias")
+                kernel = cast_cached(getattr(self, f"dense_{dense_i}_kernel"), cd)
+                bias = cast_cached(getattr(self, f"dense_{dense_i}_bias"), cd)
                 lead = x.shape[:-1]
                 y = fused_dense_lrelu(x.reshape(-1, x.shape[-1]).contiguous(), kernel, bias,
                                       self.plan[idx + 1][1])
@@ -144,8 +158,8 @@ class PlanSequential(nn.Module):
                 dense_i += 1
                 skip_next = True
             elif kind == "conv" or kind == "convT":
-                kernel = getattr(self, f"{kind}_{conv_i}_kernel")
-                bias = getattr(self, f"{kind}_{conv_i}_bias")
+                kernel = cast_cached(getattr(self, f"{kind}_{conv_i}_kernel"), cd)
+                bias = cast_cached(getattr(self, f"{kind}_{conv_i}_bias"), cd)
                 if kind == "conv":
                     x = conv2d(x, kernel, op[3], op[4]) + bias
                 else:
@@ -159,11 +173,14 @@ class PlanSequential(nn.Module):
             elif kind == "sigmoid":
                 x = torch.sigmoid(x)
             elif kind == "bn":
-                x = getattr(self, f"bn_{bn_i}")(x)
+                # flax computes the normalisation in float32 (its statistics
+                # and parameters) and casts the result to the compute type
+                x = getattr(self, f"bn_{bn_i}")(x.float()).to(cd)
                 bn_i += 1
             elif kind == "dense":
                 x = F.linear(
-                    x, getattr(self, f"dense_{dense_i}_kernel"), getattr(self, f"dense_{dense_i}_bias")
+                    x, cast_cached(getattr(self, f"dense_{dense_i}_kernel"), cd),
+                    cast_cached(getattr(self, f"dense_{dense_i}_bias"), cd),
                 )
                 dense_i += 1
             elif kind == "flatten":
@@ -191,9 +208,11 @@ class AttributeChannels(nn.Module):
         embed_hw: Tuple[int, int] = (16, 16),
         device: DeviceLike = None,
         rng: Optional[torch.Generator] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.spec = spec
+        self.compute_dtype = compute_dtype
         self.image_size = tuple(image_size)
         self.embed_hw = tuple(embed_hw)
         for a in spec.categorical:
@@ -205,15 +224,16 @@ class AttributeChannels(nn.Module):
         h, w = self.image_size
         eh, ew = self.embed_hw
         b = x.shape[0]
-        chans = [x.float()]
+        cd = self.compute_dtype
+        chans = [x.to(cd)]
         rows = torch.arange(h, device=x.device) * eh // h
         cols = torch.arange(w, device=x.device) * ew // w
         for a in self.spec.categorical:
             idx = torch.argmax(attrs[a.name], dim=-1)
             m = getattr(self, f"embed_{a.name}")[idx].reshape(b, eh, ew, 1)
-            chans.append(torch.tanh(m[:, rows][:, :, cols]))
+            chans.append(torch.tanh(m[:, rows][:, :, cols]).to(cd))
         for a in self.spec.continuous:
-            v = attrs[a.name].reshape(b, 1, 1, 1).float()
+            v = attrs[a.name].reshape(b, 1, 1, 1).to(cd)
             chans.append(v.expand(b, h, w, 1))
         return torch.cat(chans, dim=-1)
 
@@ -232,15 +252,19 @@ class AttributeVectors(nn.Module):
         embed_dim: int = 256,
         device: DeviceLike = None,
         rng: Optional[torch.Generator] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.spec = spec
+        self.compute_dtype = compute_dtype
         for a in spec.categorical:
             table = nn.init.normal_(torch.empty(a.n_categories, embed_dim), generator=rng)
             self.register_parameter(f"embed_{a.name}", nn.Parameter(table))
         self.to(resolve_device(device))
 
     def forward(self, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        feats = [attrs[a.name].float() @ getattr(self, f"embed_{a.name}") for a in self.spec.categorical]
-        feats += [attrs[a.name].reshape(-1, 1).float() for a in self.spec.continuous]
+        cd = self.compute_dtype
+        feats = [attrs[a.name].to(cd) @ cast_cached(getattr(self, f"embed_{a.name}"), cd)
+                 for a in self.spec.categorical]
+        feats += [attrs[a.name].reshape(-1, 1).to(cd) for a in self.spec.continuous]
         return torch.cat(feats, dim=-1)

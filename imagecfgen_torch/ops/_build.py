@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface, so it is compiled by
 ``nvcc`` alone (no PyTorch headers) into ``build/<name>-<hash>.so`` at the
 repository root, a git-ignored directory. The hash covers the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
+The ``csrc/*.cuh`` headers the sources share are part of every hash.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
