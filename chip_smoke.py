@@ -42,7 +42,47 @@ A3. the path end to end: ``cf_effectiveness_score`` (target ``digit``,
 A4. times: each kernel at the path's shapes beside its plain version, the
     library call and its bound, and the score's rate with its stages.
 
-The ``kernels`` line lists every kernel row; the last line of output is
+and for the training paths, all in float32 (100 steps a timed epoch):
+
+T1. GAN training on MNIST at full width: ``GANTrainer`` on
+    ``mnist_bigan_config()``, batch 64, ``d_updates_per_g_update=3``, a
+    device-resident synthetic set, one warm-up ``fit_epoch`` and one timed:
+    finite metrics, every parameter of E, G and D changed and left with a
+    gradient, D's running statistics moved, Adam's D count twice the step
+    count, one ``fused_encoder`` launch a step; steps/s, images/s;
+T6. checkpoint: T1's state saved, loaded into a fresh trainer, one more step
+    from each on the same batch, each drawing its noise from its own
+    (restored) generator, compared bit for bit;
+T1b. the time of each phase of a step (E+G update, recompute, D real, D fake);
+T1c. ``fused_encoder`` against its plain version at the shape the recompute
+    phase gives it, (64, 28, 28, 5), whose launch plan differs from the
+    serving batch's: on the trainer's own weights and attribute channels, and
+    on fan-in-scaled weights, whose O(1) outputs make the gate bite;
+T2. the gradient routes: the encoder's gradients through its
+    ``PlanSequential`` against the plain im2col version's, ``fused_dense``'s
+    ``dx``, ``dw``, ``db`` at (128, 4096, 1024) against autograd through its
+    plain version (float32 gate; the plain side takes each LeakyReLU on the
+    side of its kink that the checked route's activation lies on, since a
+    value within rounding of zero can differ in sign between two routes and
+    the gradient jumps there; such values may number at most 4 or 1e-5 of all and
+    each must lie within 1e-5 * max(1, max |input|) of zero in both routes),
+    and ``fused_encoder_forward`` raising when asked for a gradient on the
+    card;
+T3. classifier training on AudioMNIST at full width: ``SupervisedTrainer`` on
+    ``audio_mnist_classifier_config(10)``, batch 128, 20 steps of ``ce``: the
+    loss on a fixed batch falls, one ``fused_dense`` launch a step, the head's
+    weight changed; steps/s;
+T4. GAN training on AudioMNIST at full width, batch 32, 5 steps (``init_std``
+    0.01, the value the JAX package's audio battery trains with: at the
+    config's 0.001 the first steps' gradients are too small to tell a moved
+    parameter from a still one), then ``fused_encoder`` against its plain
+    version at that path's shape, (32, 128, 128, 7), as in T1c;
+T5. both attribute SCMs' MLE ``fit`` on a few thousand synthetic rows: the
+    NLL falls, and ``sample_cf`` on the fitted SCM passes the serving checks.
+
+The ``kernels`` line lists every kernel row (``launches``: the serving path's;
+``train_launches`` over ``train_steps``: the training path's); the last line
+of output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
 name and power limit of the card.
 """
@@ -54,6 +94,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,6 +112,7 @@ PEAKS = (
     ("H200", 495.0, 989.0, 4.8),
     ("H100", 495.0, 989.0, 3.35),  # SXM: "NVIDIA H100 80GB HBM3"
 )
+TRAIN_STEPS = 100  # steps of each MNIST GAN-training epoch (warm-up and timed)
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)
 TAG = {F32: "f32", BF16: "bf16"}
@@ -568,6 +610,435 @@ def audio_phases(args, dev, card, peak):
     return rows, lines
 
 
+def changed(before, module, what: str) -> None:
+    """Every parameter of ``module`` differs from its clone in ``before``
+    and holds a gradient."""
+    for n, p in module.named_parameters():
+        check(p.grad is not None, f"{what}: {n} ended a step with grad None")
+        check(not torch.equal(p.detach(), before[n]), f"{what}: {n} did not change")
+
+
+def grads_agree(what: str, got, plain) -> float:
+    """Gradients against the plain route's, under the float32 gate; every
+    gradient outside it is printed before the run fails."""
+    worst, bad = 0.0, []
+    for name in plain:
+        g, p = got[name], plain[name]
+        check(g is not None and g.shape == p.shape, f"{what}: gradient of {name} missing")
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite gradient of {name}")
+        tol = GATE[F32] * max(1.0, p.abs().max().item())
+        err = (g - p).abs().max().item()
+        if err > tol:
+            bad.append(name)
+            print(f"{what}: gradient of {name} off by {err:.3e} (tol {tol:.3e}, max|plain| "
+                  f"{p.abs().max().item():.3e})")
+        worst = max(worst, err / tol)
+    check(not bad, f"{what}: gradients of {bad} outside the gate")
+    print(f"{what}: {len(plain)} gradients within the gate (worst at {worst:.1%} of it)")
+    return worst
+
+
+def near_kink(what: str, a, b, total_gate: float = 1e-5) -> int:
+    """The LeakyReLU inputs that lie on different sides of zero in two routes
+    (``a``, ``b``: lists of pre-activations): there may be at most 4 or
+    ``total_gate`` of all of them, each within float32 rounding of zero,
+    ``1e-5 * max(1, max|input|)``, in both routes. Returns their number."""
+    flips, total = 0, sum(t.numel() for t in a)
+    most = max(4, int(total_gate * total))
+    for i, (u, v) in enumerate(zip(a, b)):
+        flipped = (u >= 0) != (v >= 0)
+        n = int(flipped.sum())
+        if n:
+            near = 1e-5 * max(1.0, u.abs().max().item())
+            far = max(u[flipped].abs().max().item(), v[flipped].abs().max().item())
+            check(far <= near, f"{what}: a LeakyReLU input of layer {i + 1} changes sign between the "
+                               f"routes at |value| {far:.3e}, beyond rounding ({near:.3e})")
+        flips += n
+    print(f"{what}: {flips} of {total} LeakyReLU inputs lie on different sides of zero in the two "
+          f"routes (at most {most} may, each within rounding of zero)")
+    check(flips <= most, f"{what}: {flips} LeakyReLU inputs change sides between the routes")
+    return flips
+
+
+def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev):
+    """The trunk kernel against its plain version at the shape a trainer's
+    recompute phase gives it (``plan_gemm`` picks tiles and splits from the
+    batch): on the trainer's own encoder weights and attribute channels, and
+    on fan-in-scaled weights and N(0, 1) features of that shape, whose O(1)
+    outputs make the float32 gate bite."""
+    with torch.no_grad():
+        feats = encoder.attr_channels(x, attrs)
+        own = {n: p.detach() for n, p in encoder.trunk.named_parameters()}
+        err, _, _, _, plain = check_trunk(f"{name}, the trainer's weights", own, feats, plan, F32)
+        top = plain.abs().max().item()
+        print(f"fused_encoder {name}, the trainer's weights: max|plain| = {top:.3e}, "
+              f"relative error {err / top:.3e} (printed, not gated)")
+        rng = np.random.default_rng(seed)
+        probe = torch.from_numpy(rng.normal(0, 1, tuple(feats.shape)).astype(np.float32)).to(dev)
+        check_trunk(f"{name}, fan-in weights", trunk_params(plan, seed, dev, c_in=feats.shape[-1], std=None),
+                    probe, plan, F32)
+
+
+def gan_data(cfg, n: int, rng, dev):
+    """A synthetic device-resident set for ``cfg``: U(-1, 1) images, uniform
+    one-hot categorical attributes, U(-1, 1) continuous ones (scaled)."""
+    h, w = cfg.image_size
+    x = torch.from_numpy(rng.uniform(-1, 1, (n, h, w, cfg.image_channels)).astype(np.float32))
+    attrs = {a.name: F.one_hot(torch.from_numpy(rng.integers(0, a.n_categories, n)),
+                               a.n_categories).float() for a in cfg.attr_spec.categorical}
+    attrs.update({a.name: torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+                  for a in cfg.attr_spec.continuous})
+    return x.to(dev), {k: v.to(dev) for k, v in attrs.items()}
+
+
+def training_phases(args, dev, card):
+    """Phases T1-T6. Returns ({kernel row name: (launches, steps)}, lines)."""
+    import dataclasses
+
+    from imagecfgen_torch.core.checkpoint import load_meta, load_train_state, save_train_state
+    from imagecfgen_torch.ops.conv import conv2d, conv_out_size
+    from imagecfgen_torch.models.bigan import (
+        BiGAN,
+        Encoder,
+        audio_mnist_bigan_config,
+        mnist_bigan_config,
+    )
+    from imagecfgen_torch.models.classifier import CNNClassifier, audio_mnist_classifier_config
+    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu, fused_dense_reference
+    from imagecfgen_torch.ops.fused_encoder import (
+        fused_encoder_forward,
+        fused_encoder_reference,
+        plan_conv_ops,
+        trunk_weights,
+    )
+    from imagecfgen_torch.scm.audio_mnist import CARDINALITIES, AudioMNISTAttributeSCM
+    from imagecfgen_torch.scm.mnist import MNISTAttributeSCM
+    from imagecfgen_torch.train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
+    from imagecfgen_torch.train.gan_trainer import METRICS, GANTrainConfig, GANTrainer
+
+    rng = np.random.default_rng(args.seed + 20)
+    lines, train_launches = [], {}
+
+    # ------------------------------------------ T1. GAN training, MNIST
+    steps, bsz = TRAIN_STEPS, 64
+    cfg = mnist_bigan_config()
+    tcfg = GANTrainConfig(batch_size=bsz, d_updates_per_g_update=3)
+    tr = GANTrainer(BiGAN(cfg, dev, seeded(args.seed + 21)), tcfg, seed=args.seed + 22)
+    data = tr.upload_dataset(*gan_data(cfg, steps * bsz, rng, dev))
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in tr.model.discriminator.named_buffers()}
+    check(len(stats0) == 8, f"D has {len(stats0)} batch-norm buffers, not 8")
+    fused_encoder_forward.launches = 0
+    warm = tr.fit_epoch(data)
+    check(fused_encoder_forward.launches == steps, "warm-up epoch: one fused_encoder launch a step")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fused_encoder_forward.launches = 0
+    start.record()
+    metrics = tr.fit_epoch(data)
+    end.record()
+    torch.cuda.synchronize()
+    epoch_ms = start.elapsed_time(end)
+    launches = fused_encoder_forward.launches
+    train_launches["fused_encoder"] = (launches, steps)
+    print(f"T1 GAN training MNIST: {steps} steps in {epoch_ms:.1f} ms; fused_encoder launched "
+          f"{launches} times; metrics {metrics}")
+    for m in (warm, metrics):
+        check(sorted(m) == sorted(METRICS) and all(np.isfinite(v) for v in m.values()), f"metrics {m}")
+    check(launches == steps, f"{launches} fused_encoder launches in {steps} steps")
+    check(tr.step == 2 * steps, f"step count {tr.step}")
+    changed(before, tr.model, "T1")
+    for n, b in tr.model.discriminator.named_buffers():
+        check(not torch.equal(b, stats0[n]) and bool(torch.isfinite(b).all()),
+              f"T1: D's running statistic {n} did not move")
+    state = tr.state_dict()
+    check(state["opt_d"]["count"] == 2 * tr.step, f"Adam's D count {state['opt_d']['count']}")
+    check(state["opt_eg"]["count"] == -(-tr.step // 3), f"Adam's E+G count {state['opt_eg']['count']}")
+    gan_line = {
+        "trainer": "GANTrainer mnist_bigan_config()", "compute_dtype": "f32", "batch": bsz,
+        "d_updates_per_g_update": 3, "steps": steps, "ms_per_step": epoch_ms / steps,
+        "steps_per_s": steps / (epoch_ms / 1e3), "images_per_s": steps * bsz / (epoch_ms / 1e3),
+        "fused_encoder_launches": launches, "metrics": metrics, "card": card,
+    }
+
+    # ------------------------------------------------ T6. checkpoint
+    batch = {"image": data["image"][:bsz], "attrs": {k: v[:bsz] for k, v in data["attrs"].items()}}
+    other = GANTrainer(BiGAN(cfg, dev, seeded(args.seed + 23)), tcfg, seed=args.seed + 24)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mnist-bigan-train.ckpt")
+        t0 = time.perf_counter()
+        save_train_state(path, state, meta={"kind": "bigan-train", "step": tr.step})
+        size = os.path.getsize(path)
+        check(load_meta(path) == {"kind": "bigan-train", "step": tr.step}, "checkpoint meta")
+        loaded, _ = load_train_state(path)
+        other.load_state_dict(loaded)
+        print(f"T6 checkpoint: {size / 2**20:.1f} MiB saved and loaded in {time.perf_counter() - t0:.2f} s")
+    del state, loaded
+    check(other.step == tr.step, "restored step")
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:  # the same kernels in the same order on both sides
+        ma, mb = tr.train_step(batch), other.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn_det
+    for k in METRICS:
+        check(torch.equal(ma[k], mb[k]), f"T6: {k} differs after the resumed step")
+    sa, sb = tr.state_dict(), other.state_dict()
+    for part in ("E", "G", "D"):
+        for n in sa[part]:
+            check(torch.equal(sa[part][n], sb[part][n]), f"T6: {part}.{n} differs after the resumed step")
+    for opt in ("opt_eg", "opt_d"):
+        check(sa[opt]["count"] == sb[opt]["count"], f"T6: {opt} count")
+        for moment in ("mu", "nu"):
+            for n in sa[opt][moment]:
+                check(torch.equal(sa[opt][moment][n], sb[opt][moment][n]), f"T6: {opt}.{moment}.{n} differs")
+    check(torch.equal(sa["rng"], sb["rng"]), "T6: the generator's state differs")
+    print("T6 checkpoint: the resumed trainer's next step is bit-identical (parameters, buffers, "
+          "both Adam states, metrics, generator state)")
+    del other, sa, sb
+
+    # -------------------------------------------- T1b. the step by phase
+    x, attrs = batch["image"], batch["attrs"]
+    z, masks = tr.draw_noise(bsz)
+    ex, gz = tr.recompute(x, attrs, z)
+    gan_line["phases_ms"] = {
+        "draw_noise": time_ms(lambda: tr.draw_noise(bsz)),
+        "eg_update": time_ms(lambda: tr.eg_update(x, attrs, z, masks[0], masks[1])),
+        "recompute": time_ms(lambda: tr.recompute(x, attrs, z)),
+        "d_update_real": time_ms(lambda: tr.d_update(x, ex, attrs, 1, masks[2])),
+        "d_update_fake": time_ms(lambda: tr.d_update(gz, z, attrs, 0, masks[3])),
+    }
+    lines.append(gan_line)
+    if args.profile:
+        profile_path(lambda: [tr.train_step(batch) for _ in range(5)], "chip_smoke_profile_train_f32.txt")
+
+    # ---------------- T1c. the kernel at the shape the recompute gives it
+    trunk_at_training_shape(f"MNIST trunk at batch {bsz}", tr.model.encoder, x, attrs, cfg.enc_plan,
+                            args.seed + 35, dev)
+
+    # ------------------------------------------ T2. the gradient routes
+    enc = Encoder(cfg, dev, seeded(args.seed + 25))
+    with torch.no_grad():  # O(1) activations, so that the gate means something
+        for k, v in trunk_params(cfg.enc_plan, args.seed + 26, dev, std=None).items():
+            getattr(enc.trunk, k).copy_(v)
+    names = [n for n, _ in enc.trunk.named_parameters()]
+    feats = torch.from_numpy(rng.normal(0, 1, (bsz, 28, 28, 5)).astype(np.float32)).to(dev)
+    probe = torch.from_numpy(rng.normal(0, 1, (bsz, cfg.latent_dim)).astype(np.float32)).to(dev)
+
+    conv_ops = plan_conv_ops(cfg.enc_plan)
+
+    def route_grads(route):
+        f = feats.clone().requires_grad_(True)
+        params = dict(enc.trunk.named_parameters())
+        out = route(params, f).reshape(bsz, -1)
+        grads = torch.autograd.grad((out * probe).sum(), [f, *params.values()])
+        return out.detach(), dict(zip(["features", *names], grads))
+
+    def plain_layers(params, f, sides=None):
+        """The plain im2col version layer by layer. ``sides``: the side of
+        zero each LeakyReLU input is taken to lie on (the layer's own when
+        None). Returns (output, the LeakyReLU inputs)."""
+        flat, x, pre = trunk_weights(params), f, []
+        for i, (stride, pad, slope) in enumerate(conv_ops):
+            wt, bias = flat[2 * i], flat[2 * i + 1]
+            oh = conv_out_size(x.shape[1], wt.shape[2], stride, pad)
+            x = fused_encoder_reference(x, [(wt, bias)], [(stride, pad, None)]).reshape(bsz, oh, oh, -1)
+            if slope is not None:
+                pre.append(x)
+                x = torch.where(x >= 0 if sides is None else sides[i], x, slope * x)
+        return x, pre
+
+    # The two routes round differently (1e-6), so an activation within that of
+    # zero can lie on either side of a LeakyReLU's kink, where the gradient
+    # jumps by the slope: the plain gradients are taken on the sides the
+    # PlanSequential route's activations lie on, read from its own forward.
+    # That is sound only while such activations are few and within rounding
+    # of zero in both routes, which near_kink holds them to.
+    with torch.no_grad():
+        pre_plan, x_plan = [], feats
+        for i, (stride, pad, slope) in enumerate(conv_ops):
+            x_plan = conv2d(x_plan, getattr(enc.trunk, f"conv_{i}_kernel"), stride, pad) \
+                + getattr(enc.trunk, f"conv_{i}_bias")
+            if slope is not None:
+                pre_plan.append(x_plan)
+                x_plan = F.leaky_relu(x_plan, slope)
+        near_kink("T2 encoder, PlanSequential against the plain im2col version", pre_plan,
+                  plain_layers(dict(enc.trunk.named_parameters()), feats)[1])
+    sides = [t >= 0 for t in pre_plan]
+
+    fused_encoder_forward.launches = 0
+    out_plan, g_plan = route_grads(lambda params, f: enc.trunk(f, train=True))
+    out_plain, g_plain = route_grads(lambda params, f: plain_layers(params, f, sides)[0])
+    check(torch.equal(out_plan.reshape(x_plan.shape), x_plan), "T2: the replayed forward is not the trunk's")
+    agree("T2 encoder forward through its PlanSequential", out_plan, out_plain, F32)
+    grads_agree("T2 encoder gradients, PlanSequential against the plain im2col version", g_plan, g_plain)
+    z_grad = enc(x, attrs)
+    check(z_grad.requires_grad and fused_encoder_forward.launches == 0,
+          "T2: the encoder took the kernel while a gradient was recorded")
+    with torch.no_grad():
+        z_kernel = enc(x, attrs)
+    check(fused_encoder_forward.launches == 1 and not z_kernel.requires_grad,
+          "T2: the encoder did not take the kernel under no_grad")
+    agree("T2 encoder, kernel route against differentiable route", z_kernel, z_grad.detach(), F32)
+    try:
+        fused_encoder_forward(dict(enc.trunk.named_parameters()), feats, cfg.enc_plan)
+    except ValueError as e:
+        print(f"T2 fused_encoder_forward refuses a gradient on the card: {e}")
+    else:
+        check(False, "T2: fused_encoder_forward returned a result while a gradient was asked of it")
+
+    m, k, n = 128, 4096, 1024
+    dx = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dev)
+    dw = torch.from_numpy(rng.normal(0, 1 / np.sqrt(k), (n, k)).astype(np.float32)).to(dev)
+    db = torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32)).to(dev)
+    dprobe = torch.from_numpy(rng.normal(0, 1, (m, n)).astype(np.float32)).to(dev)
+
+    def dense_grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (dx, dw, db)]
+        out = fn(*leaves, 0.2)
+        grads = torch.autograd.grad((out * dprobe).sum(), leaves)
+        return out.detach(), dict(zip(("dx", "dw", "db"), grads))
+
+    fused_dense_lrelu.launches = 0
+    out, got = dense_grads(fused_dense_lrelu)
+    check(fused_dense_lrelu.launches == 1, "T2: fused_dense_lrelu did not launch its kernel")
+    # LeakyReLU keeps the sign, so the outputs' signs are the inputs'; an
+    # output within rounding of zero has an input within 1 / slope of that
+    near_kink("T2 fused_dense, kernel against plain version", [out],
+              [fused_dense_reference(dx, dw, db, 0.2)])
+
+    def plain_dense(x, w, b, slope):  # the plain version, on the kernel's sides of the kink
+        z = x @ w.t() + b
+        return torch.where(out >= 0, z, slope * z)
+
+    grads_agree(f"T2 fused_dense backward at ({m}, {k}, {n}) against autograd through the plain version",
+                got, dense_grads(plain_dense)[1])
+    del enc, dx, dw, db
+
+    # ------------------------------- T3. classifier training, AudioMNIST
+    csteps, cb = 20, 128
+    clf = CNNClassifier(audio_mnist_classifier_config(10), dev, seeded(args.seed + 27))
+    ctr = SupervisedTrainer(clf, SupervisedTrainConfig(batch_size=cb, loss="ce"), seed=args.seed + 28)
+    cx = torch.from_numpy(rng.uniform(-1, 1, (2 * cb, 128, 128, 1)).astype(np.float32)).to(dev)
+    cy = F.one_hot(torch.from_numpy(rng.integers(0, 10, 2 * cb)), 10).float().to(dev)
+    cbatches = [{"x": cx[i * cb:(i + 1) * cb], "y": cy[i * cb:(i + 1) * cb]} for i in range(2)]
+    head0 = clf.trunk.dense_0_kernel.detach().clone()
+    loss0 = ctr.compute_loss(ctr.predict(cbatches[0]["x"]), cbatches[0]["y"]).item()
+    for i in range(2):  # warm-up: cuDNN picks its algorithms, the kernel library loads
+        ctr.train_step(cbatches[i])
+    fused_dense_lrelu.launches = 0
+    torch.cuda.synchronize()
+    start.record()
+    losses = [ctr.train_step(cbatches[i % 2])["loss"] for i in range(csteps)]
+    end.record()
+    torch.cuda.synchronize()
+    clf_ms = start.elapsed_time(end)
+    launches = fused_dense_lrelu.launches
+    train_launches["fused_dense"] = (launches, csteps)
+    loss1 = ctr.compute_loss(ctr.predict(cbatches[0]["x"]), cbatches[0]["y"]).item()
+    print(f"T3 classifier training AudioMNIST: {csteps} steps in {clf_ms:.1f} ms; fused_dense launched "
+          f"{launches} times; loss on a fixed batch {loss0:.4f} -> {loss1:.4f}")
+    check(all(np.isfinite(v) for v in torch.stack(losses).tolist()), "T3: non-finite loss")
+    check(np.isfinite(loss1) and loss1 < loss0, f"T3: the loss did not fall ({loss0} -> {loss1})")
+    check(launches == csteps, f"T3: {launches} fused_dense launches in {csteps} steps")
+    check(not torch.equal(clf.trunk.dense_0_kernel.detach(), head0), "T3: the head's weight did not change")
+    check(all(p.grad is not None for p in clf.parameters()), "T3: a parameter ended a step with grad None")
+    lines.append({
+        "trainer": "SupervisedTrainer audio_mnist_classifier_config(10)", "compute_dtype": "f32",
+        "loss": "ce", "batch": cb, "steps": csteps, "ms_per_step": clf_ms / csteps,
+        "steps_per_s": csteps / (clf_ms / 1e3), "samples_per_s": csteps * cb / (clf_ms / 1e3),
+        "fused_dense_launches": launches, "loss_before": loss0, "loss_after": loss1, "card": card,
+    })
+    del clf, ctr, cx, cy, cbatches
+
+    # ----------------------------------- T4. GAN training, AudioMNIST
+    asteps, ab = 5, 32
+    acfg = dataclasses.replace(audio_mnist_bigan_config(), init_std=0.01)
+    atr = GANTrainer(BiGAN(acfg, dev, seeded(args.seed + 29)), GANTrainConfig(batch_size=ab),
+                     seed=args.seed + 30)
+    adata = atr.upload_dataset(*gan_data(acfg, asteps * ab, rng, dev))
+    before = {n: p.detach().clone() for n, p in atr.model.named_parameters()}
+    fused_encoder_forward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ametrics = atr.fit_epoch(adata)
+    audio_s = time.perf_counter() - t0  # the first steps: cuDNN's algorithm choice included
+    launches = fused_encoder_forward.launches
+    train_launches["fused_encoder:audio_mnist"] = (launches, asteps)
+    print(f"T4 GAN training AudioMNIST: {asteps} steps in {audio_s:.2f} s (first steps); fused_encoder "
+          f"launched {launches} times; metrics {ametrics}")
+    check(all(np.isfinite(v) for v in ametrics.values()), f"T4: metrics {ametrics}")
+    check(launches == asteps and atr.step == asteps, f"T4: {launches} launches in {atr.step} steps")
+    changed(before, atr.model, "T4")
+    check(atr.state_dict()["opt_d"]["count"] == 2 * asteps, "T4: Adam's D count")
+    trunk_at_training_shape(f"audio trunk at batch {ab}", atr.model.encoder, adata["image"][:ab],
+                            {k: v[:ab] for k, v in adata["attrs"].items()}, acfg.enc_plan,
+                            args.seed + 36, dev)
+    del atr, adata, before
+
+    # ------------------------------------------------- T5. SCM fits
+    n = 4000
+    t = (rng.gamma(10, 1 / 5, n) + 0.5).astype(np.float32)
+    i = (191 / (1 + np.exp(-(2 * t - 5))) + 64 + rng.normal(0, 3, n)).astype(np.float32)
+    s = (np.pi * rng.normal(0, 0.1, n)).astype(np.float32)
+    raw = {"thickness": t, "intensity": i, "slant": s, "digit": rng.integers(0, 10, n)}
+    obs = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    obs.update({k: obs[k].reshape(-1, 1) for k in MNISTAttributeSCM.CONT})
+
+    def mnist_fit(epochs):
+        return MNISTAttributeSCM.fit(raw, steps=epochs, batch_size=1000, rng=seeded(args.seed + 31))
+
+    def nll(scm, keys):
+        lp = scm.log_prob(obs)
+        return -sum(lp[k].mean().item() for k in keys)
+
+    t0 = time.perf_counter()
+    start_scm, scm = mnist_fit(0), mnist_fit(40)
+    fit_s = time.perf_counter() - t0
+    nll0, nll1 = nll(start_scm, MNISTAttributeSCM.CONT), nll(scm, MNISTAttributeSCM.CONT)
+    print(f"T5 MNISTAttributeSCM.fit: 40 epochs of 4 steps in {fit_s:.2f} s; NLL {nll0:.4f} -> {nll1:.4f}")
+    check(np.isfinite(nll1) and nll1 < nll0, f"T5: the MNIST SCM's NLL did not fall ({nll0} -> {nll1})")
+    check(all(v.device.type == "cuda" for v in scm.params["intensity"][0]["mlp"][0].values()),
+          "T5: the fitted SCM is not on the card")
+    do = {"thickness": obs["thickness"] + 2}
+    cf = scm.sample_cf(seeded(args.seed + 32), obs, do)
+    check(sorted(cf) == sorted(raw) and all(torch.isfinite(v.float()).all() for v in cf.values()),
+          "T5: counterfactual attributes")
+    check(torch.equal(cf["thickness"], do["thickness"]), "T5: do(thickness) lost")
+    check(torch.equal(cf["digit"].reshape(-1), obs["digit"]), "T5: digit changed without an intervention")
+    check(torch.equal(cf["slant"], obs["slant"]) or (cf["slant"] - obs["slant"]).abs().max().item() < 1e-3,
+          "T5: slant changed under do(thickness)")
+    check((cf["intensity"] - obs["intensity"]).abs().max().item() > 0, "T5: intensity ignored its parent")
+
+    country = rng.integers(0, 13, n)
+    native = (country % 2 + (rng.random(n) < 0.1)) % 2
+    araw = {k: rng.integers(0, c, n) for k, c in CARDINALITIES.items()}
+    araw.update({"country_of_origin": country, "native_speaker": native,
+                 "accent": (country + 3 * native + (rng.random(n) < 0.1)) % 15})
+    obs = {k: torch.from_numpy(v).to(dev) for k, v in araw.items()}
+
+    def audio_fit(epochs):
+        return AudioMNISTAttributeSCM.fit(araw, steps=epochs, batch_size=1000, rng=seeded(args.seed + 33))
+
+    t0 = time.perf_counter()
+    start_scm, ascm = audio_fit(0), audio_fit(20)
+    fit_s = time.perf_counter() - t0
+    keys = AudioMNISTAttributeSCM.TRAINABLE
+    nll0, nll1 = nll(start_scm, keys), nll(ascm, keys)
+    print(f"T5 AudioMNISTAttributeSCM.fit: 20 epochs of 4 steps in {fit_s:.2f} s; NLL {nll0:.4f} -> {nll1:.4f}")
+    check(np.isfinite(nll1) and nll1 < nll0, f"T5: the audio SCM's NLL did not fall ({nll0} -> {nll1})")
+    new_country = (obs["country_of_origin"] + 1) % 13
+    cf = ascm.sample_cf(seeded(args.seed + 34), obs, {"country_of_origin": new_country})
+    check(torch.equal(cf["country_of_origin"], new_country), "T5: do(country_of_origin) lost")
+    for k in ("digit", "age", "gender"):
+        check(torch.equal(cf[k], obs[k]), f"T5: {k} changed under do(country_of_origin)")
+    check(bool((cf["native_speaker"] != obs["native_speaker"]).any()),
+          "T5: native_speaker ignored its parent after the fit")
+    return train_launches, lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -579,7 +1050,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time each trunk layer alone beside its library conv, and write "
                          "torch.profiler tables of one MNIST counterfactual batch and one "
-                         f"AudioMNIST scoring round, in each type, to {PROFILE_DIR}/")
+                         "AudioMNIST scoring round, in each type, and of five GAN training "
+                         f"steps, to {PROFILE_DIR}/")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -713,7 +1185,14 @@ def main(argv=None) -> int:
     # ------------------------------------------- A2-A4. the AudioMNIST path
     audio_rows, score_lines = audio_phases(args, dev, card, peak)
     kernels += audio_rows
-    for line in engine_lines + score_lines:
+
+    # ------------------------------------------------ T1-T6. training
+    train_launches, train_lines = training_phases(args, dev, card)
+    for kernel in kernels:  # training is float32: the bf16 rows have no training launches
+        count, steps = train_launches[kernel["name"]] if kernel["dtype"] == "f32" else (None, None)
+        check(count is None or count > 0, f"the training path did not reach the {kernel['name']} kernel")
+        kernel.update(train_launches=count, train_steps=steps)
+    for line in engine_lines + score_lines + train_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))
 

@@ -1,25 +1,29 @@
-"""Conditional ALI/BiGAN encoder and generator
+"""Conditional ALI/BiGAN encoder, generator and discriminator
 (port of ``imagecfgen_tpu/models/bigan.py``).
 
 - ``Encoder``:  image ++ attribute channels -> conv plan -> (B,1,1,latent)
 - ``Generator``: latent ++ attribute vector -> either a 1x1-spatial deconv
   plan (``gen_input="spatial"``, MNIST) or a dense-stem plan
   (``gen_input="dense"``, AudioMNIST) -> image in [-1,1]
+- ``Discriminator``: joint D(x, z, c) = dxz(dx(x ++ attribute channels) ++
+  dz(z)), logits ``(B, 1)``; dropout and batch norm are active when
+  ``train`` (MNIST's ``dx`` has both).
 
-The one deviation from the JAX wiring: when the encoder plan is conv and
-LeakyReLU only, ``Encoder`` runs its trunk through
+The one deviation from the JAX wiring: ``Encoder`` runs its trunk through
 ``ops.fused_encoder.fused_encoder_forward`` — the hand-written CUDA kernel
 on the card, its plain version on the CPU — where the JAX ``Encoder`` runs
-``PlanSequential``. The function is the same.
+``PlanSequential``. The function is the same. The kernel has no backward
+(neither has the TPU kernel), so whenever a gradient is being recorded and
+the encoder's input or parameters ask for one, the trunk runs as its
+``PlanSequential`` instead, as the JAX ``Encoder`` always does.
 
-This slice carries the encoders and generators of ``mnist_bigan_config``
-and ``audio_mnist_bigan_config``; the discriminator (and its plans) and the
-other domains' configs come with later slices.
+This slice carries ``mnist_bigan_config`` and ``audio_mnist_bigan_config``;
+the other domains' configs come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,6 +42,9 @@ class BiGANConfig:
     attr_spec: AttributeSpec
     enc_plan: Plan
     gen_plan: Plan
+    dx_plan: Plan
+    dz_plan: Plan
+    dxz_plan: Plan
     embed_dim: int = 256
     embed_hw: Tuple[int, int] = (16, 16)
     init_std: float = 0.01
@@ -65,9 +72,19 @@ class Encoder(nn.Module):
         )
         plan_conv_ops(cfg.enc_plan)  # the trunk must be conv/LeakyReLU only
 
-    def forward(self, x: torch.Tensor, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def needs_grad(self, feats: torch.Tensor) -> bool:
+        """Whether a gradient is being recorded and the trunk's input or
+        parameters ask for one."""
+        return torch.is_grad_enabled() and (
+            feats.requires_grad or any(p.requires_grad for p in self.trunk.parameters()))
+
+    def forward(self, x: torch.Tensor, attrs: Mapping[str, torch.Tensor],
+                train: bool = False) -> torch.Tensor:
         feats = self.attr_channels(x, attrs)
-        z = fused_encoder_forward(self.trunk.cast_parameters(), feats, self.cfg.enc_plan)
+        if self.needs_grad(feats):
+            z = self.trunk(feats, train=train)  # differentiable: cuDNN convs on the card
+        else:
+            z = fused_encoder_forward(self.trunk.cast_parameters(), feats, self.cfg.enc_plan)
         return z.reshape(z.shape[0], *self.trunk.out_shape).float()
 
 
@@ -89,7 +106,8 @@ class Generator(nn.Module):
         self.trunk = PlanSequential(cfg.gen_plan, in_shape, cfg.init_std, device, rng,
                                     cfg.compute_dtype)
 
-    def forward(self, z: torch.Tensor, attrs: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, attrs: Mapping[str, torch.Tensor],
+                train: bool = False) -> torch.Tensor:
         """The attribute vector joins z as 1x1 channels ("spatial") or as
         the tail of one flat vector ("dense")."""
         b = z.shape[0]
@@ -99,11 +117,64 @@ class Generator(nn.Module):
             feats = torch.cat([z.reshape(b, 1, 1, -1).to(cd), vec.reshape(b, 1, 1, -1)], dim=-1)
         else:
             feats = torch.cat([z.reshape(b, -1).to(cd), vec], dim=-1)
-        return self.trunk(feats).float()
+        return self.trunk(feats, train=train).float()
+
+
+class Discriminator(nn.Module):
+    """Joint discriminator: ``dxz(cat(dx(x ++ attribute channels), dz(z)))``
+    -> float32 logits ``(B, 1)``."""
+
+    def __init__(self, cfg: BiGANConfig, device: DeviceLike = None,
+                 rng: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        spec = cfg.attr_spec
+        self.attr_channels = AttributeChannels(
+            spec, cfg.image_size, cfg.embed_dim, cfg.embed_hw, device, rng, cfg.compute_dtype
+        )
+        in_ch = cfg.image_channels + len(spec.categorical) + len(spec.continuous)
+        args = (cfg.init_std, device, rng, cfg.compute_dtype)
+        self.dx = PlanSequential(cfg.dx_plan, (*cfg.image_size, in_ch), *args)
+        self.dz = PlanSequential(cfg.dz_plan, (1, 1, cfg.latent_dim), *args)
+        if self.dx.out_shape[:2] != (1, 1) or self.dz.out_shape[:2] != (1, 1):
+            raise ValueError(f"dx ends at {self.dx.out_shape} and dz at {self.dz.out_shape}, not 1x1")
+        joint = self.dx.out_shape[-1] + self.dz.out_shape[-1]
+        self.dxz = PlanSequential(cfg.dxz_plan, (1, 1, joint), *args)
+
+    def draw_masks(self, batch: int, generator: Optional[torch.Generator],
+                   device: DeviceLike) -> List[torch.Tensor]:
+        """The dropout keep masks of one train-mode forward, in the order
+        it consumes them: those of ``dx``, then ``dz``, then ``dxz``."""
+        return [m for part in (self.dx, self.dz, self.dxz)
+                for m in part.draw_masks(batch, generator, device)]
+
+    def forward(self, x: torch.Tensor, z: torch.Tensor, attrs: Mapping[str, torch.Tensor],
+                train: bool = False, masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True) -> torch.Tensor:
+        """``masks``/``generator``/``update_stats``: as in
+        ``PlanSequential.forward``, the masks as :meth:`draw_masks` orders
+        them."""
+        if train and masks is None:
+            masks = self.draw_masks(x.shape[0], generator, x.device)
+        parts, at = {}, 0
+        for name in ("dx", "dz", "dxz"):
+            n = len(getattr(self, name).drop_specs)
+            parts[name] = masks[at:at + n] if train else None
+            at += n
+        if train and at != len(masks):
+            raise ValueError(f"{len(masks)} dropout masks for {at} dropout ops")
+        kw = {"train": train, "update_stats": update_stats}
+        dx = self.dx(self.attr_channels(x, attrs), masks=parts["dx"], **kw)
+        dz = self.dz(z.reshape(z.shape[0], 1, 1, -1), masks=parts["dz"], **kw)
+        out = self.dxz(torch.cat([dx, dz], dim=-1), masks=parts["dxz"], **kw)
+        return out.reshape(out.shape[0], 1).float()
 
 
 class BiGAN(nn.Module):
-    """Encoder and generator of one config, initialised from ``rng``."""
+    """Encoder, generator and discriminator of one config, initialised from
+    ``rng`` in that order."""
 
     def __init__(self, cfg: BiGANConfig, device: DeviceLike = None,
                  rng: Optional[torch.Generator] = None):
@@ -112,14 +183,16 @@ class BiGAN(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg, device, rng)
         self.generator = Generator(cfg, device, rng)
+        self.discriminator = Discriminator(cfg, device, rng)
 
 
 def mnist_bigan_config(latent_dim: int = 512,
                        compute_dtype: torch.dtype = torch.float32) -> BiGANConfig:
     """28x28 Morpho-MNIST config: the same plans as the JAX package's
     ``mnist_bigan_config`` (5-conv encoder to a (1,1,latent) code, 5-deconv
-    generator, LeakyReLU 0.2, init N(0, 0.01))."""
-    lr = ("lrelu", 0.2)
+    generator, D with (dx, dz, dxz) heads, dropout and batch norm in dx
+    only, LeakyReLU 0.2 in E/G and 0.1 in D, init N(0, 0.01))."""
+    lr, lrd = ("lrelu", 0.2), ("lrelu", 0.1)
     enc_plan = (
         ("conv", 64, 3, 2, 1), lr,
         ("conv", 128, 4, 2, 1), lr,
@@ -135,6 +208,32 @@ def mnist_bigan_config(latent_dim: int = 512,
         ("convT", 1, 4, 1, 0),
         ("tanh",),
     )
+    dx_plan = (
+        ("drop2d", 0.2),
+        ("conv", 32, 5, 1, 0), lrd,
+        ("drop2d", 0.2), ("bn",),
+        ("conv", 64, 4, 2, 0), lrd,
+        ("bn",), ("drop2d", 0.5),
+        ("conv", 128, 4, 1, 0), lrd,
+        ("bn",), ("drop2d", 0.5),
+        ("conv", 256, 4, 2, 0), lrd,
+        ("bn",), ("drop2d", 0.5),
+        ("conv", 512, 3, 1, 0), lrd,
+    )
+    dz_plan = (
+        ("drop2d", 0.2),
+        ("conv", 512, 1, 1, 0), lrd,
+        ("drop2d", 0.5),
+        ("conv", 512, 1, 1, 0), lrd,
+    )
+    dxz_plan = (
+        ("drop2d", 0.2),
+        ("conv", 1024, 1, 1, 0), lrd,
+        ("drop2d", 0.2),
+        ("conv", 1024, 1, 1, 0), lrd,
+        ("drop2d", 0.2),
+        ("conv", 1, 1, 1, 0),
+    )
     return BiGANConfig(
         image_size=(28, 28),
         image_channels=1,
@@ -142,6 +241,9 @@ def mnist_bigan_config(latent_dim: int = 512,
         attr_spec=MNIST_SPEC,
         enc_plan=enc_plan,
         gen_plan=gen_plan,
+        dx_plan=dx_plan,
+        dz_plan=dz_plan,
+        dxz_plan=dxz_plan,
         init_std=0.01,
         compute_dtype=compute_dtype,
     )
@@ -159,7 +261,8 @@ def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512,
     embedded to a 128^2 channel; the encoder is six k5/s2/p1 convs
     128 -> 63 -> 31 -> 15 -> 7 -> 3 -> 1; the generator is a dense stem
     (512 + 6*256 -> 256d) -> (4,4,16d) -> five k5/s2/p2(+1) deconvs doubling
-    4 -> 128; LeakyReLU 0.2, init N(0, 0.001)."""
+    4 -> 128; D's x tower is the encoder's plan, its z and joint heads are
+    1x1 convs; LeakyReLU 0.2, init N(0, 0.001), no dropout or batch norm."""
     lr = ("lrelu", 0.2)
     enc_plan = (
         ("conv", d, 5, 2, 1), lr,
@@ -179,6 +282,15 @@ def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512,
         ("convT", 1, 5, 2, 2, 1),
         ("tanh",),
     )
+    dz_plan = (
+        ("conv", latent_dim, 1, 1, 0), lr,
+        ("conv", latent_dim, 1, 1, 0), lr,
+    )
+    dxz_plan = (
+        ("conv", 1024, 1, 1, 0), lr,
+        ("conv", 1024, 1, 1, 0), lr,
+        ("conv", 1, 1, 1, 0),
+    )
     return BiGANConfig(
         image_size=(128, 128),
         image_channels=1,
@@ -186,6 +298,9 @@ def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512,
         attr_spec=AUDIO_MNIST_SPEC,
         enc_plan=enc_plan,
         gen_plan=gen_plan,
+        dx_plan=enc_plan,
+        dz_plan=dz_plan,
+        dxz_plan=dxz_plan,
         init_std=0.001,
         compute_dtype=compute_dtype,
         gen_input="dense",

@@ -31,7 +31,7 @@ class ClassifierConfig:
 
 
 class CNNClassifier(nn.Module):
-    """NHWC images in [-1, 1] -> f32 logits ``(B, n_classes)``; eval mode."""
+    """NHWC images in [-1, 1] -> f32 logits ``(B, n_classes)``."""
 
     def __init__(self, cfg: ClassifierConfig, device: DeviceLike = None,
                  rng: Optional[torch.Generator] = None):
@@ -43,8 +43,10 @@ class CNNClassifier(nn.Module):
             cfg.compute_dtype,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.trunk(x).float()
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``train``: as in ``PlanSequential.forward`` (no config here has
+        dropout or batch norm, so both modes agree)."""
+        return self.trunk(x, train=train).float()
 
 
 def mnist_classifier_config() -> ClassifierConfig:

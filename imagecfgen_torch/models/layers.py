@@ -6,8 +6,10 @@ A *plan* is a tuple of op descriptors (all shapes NHWC):
 - ``("conv",  features, kernel, stride, padding)``
 - ``("convT", features, kernel, stride, padding[, output_padding])``
 - ``("lrelu", slope)``, ``("tanh",)``, ``("sigmoid",)``
-- ``("bn",)``            batch norm on running statistics (eval)
-- ``("drop2d", rate)`` / ``("drop", rate)``   identity in eval
+- ``("bn",)``            batch norm over N,H,W: running statistics in eval,
+  batch statistics (and a running-statistics update) in train mode
+- ``("drop2d", rate)``   channel dropout: one keep per (sample, channel)
+- ``("drop", rate)``     element dropout; both are the identity in eval
 - ``("dense", features)``
 - ``("flatten",)`` / ``("reshape", (h, w, c))``
 
@@ -15,7 +17,16 @@ PyTorch needs parameter shapes up front, so :class:`PlanSequential` walks
 the plan from a given input shape. Parameter names follow the JAX package
 (``conv_0_kernel``, ``convT_1_bias``, ``dense_0_kernel``, ``bn_0``); kernels
 are stored in PyTorch's layouts (see :mod:`..ops.conv`), dense kernels as
-``(out, in)``. This slice runs the plans in eval mode only.
+``(out, in)``.
+
+Train mode (``forward(x, train=True)``) follows flax: dropout keeps are
+Bernoulli(1 - rate) with the kept values scaled by ``1 / (1 - rate)``, and
+every mask is injectable (``masks``, in the order the plan consumes them;
+drawn on the tensor's device from ``generator`` otherwise). Batch norm
+normalises with the batch mean and the *biased* batch variance
+``E[x^2] - E[x]^2`` in float32 and moves its running buffers by
+``0.9 * running + 0.1 * batch``; the biased variance is also what it stores,
+as flax does and ``torch.nn.BatchNorm2d`` does not.
 
 As in the JAX package, a ``dense`` op directly followed by ``lrelu`` runs as
 one ``ops.fused_dense.fused_dense_lrelu`` call (the hand-written CUDA kernel
@@ -30,7 +41,7 @@ compute type end to end, and the callers return float32.
 from __future__ import annotations
 
 import math
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -62,7 +73,11 @@ def _kernel_init(shape, std, fan_in: int, rng: Optional[torch.Generator]) -> tor
 
 
 class BatchNorm(nn.Module):
-    """Batch norm over N,H,W with running statistics (flax eval semantics)."""
+    """Batch norm over all but the last axis with flax's semantics: running
+    statistics in eval; in train mode the batch mean and the biased batch
+    variance, which also move the running buffers by ``momentum``."""
+
+    momentum = 0.9  # flax's convention: the share of the old running value
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -72,8 +87,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
+        """``update_stats=False`` leaves the running buffers alone in train
+        mode (a rematerialised forward must not move them twice)."""
+        mean, var = self.mean, self.var
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            if update_stats:
+                with torch.no_grad():
+                    self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+                    self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Zero where ``keep`` is false, ``x / (1 - rate)`` elsewhere."""
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class PlanSequential(nn.Module):
@@ -94,6 +126,8 @@ class PlanSequential(nn.Module):
         self.compute_dtype = compute_dtype
         shape = tuple(in_shape)
         conv_i = bn_i = dense_i = 0
+        # (rate, per-sample mask shape) of every dropout op that draws a mask
+        self.drop_specs: List[Tuple[float, Tuple[int, ...]]] = []
         for op in self.plan:
             kind = op[0]
             if kind in ("conv", "convT"):
@@ -129,7 +163,13 @@ class PlanSequential(nn.Module):
                 shape = (math.prod(shape),)
             elif kind == "reshape":
                 shape = tuple(op[1])
-            elif kind not in ("lrelu", "tanh", "sigmoid", "drop2d", "drop"):
+            elif kind in ("drop2d", "drop"):
+                if not 0.0 <= op[1] < 1.0:
+                    raise ValueError(f"dropout rate {op[1]} outside [0, 1)")
+                if op[1] > 0.0:  # rate 0 is the identity and draws nothing, as in flax
+                    mask = (*(1,) * (len(shape) - 1), shape[-1]) if kind == "drop2d" else shape
+                    self.drop_specs.append((float(op[1]), tuple(mask)))
+            elif kind not in ("lrelu", "tanh", "sigmoid"):
                 raise ValueError(f"unknown plan op {op!r}")
         self.out_shape = shape
         self.to(device)
@@ -138,10 +178,35 @@ class PlanSequential(nn.Module):
         """The parameters by name, in the compute type."""
         return {k: cast_cached(v, self.compute_dtype) for k, v in self.named_parameters()}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw_masks(self, batch: int, generator: Optional[torch.Generator],
+                   device: DeviceLike) -> List[torch.Tensor]:
+        """The keep masks of one train-mode forward at ``batch`` samples, in
+        the order the plan consumes them: boolean, ``(batch, 1, 1, C)`` for
+        ``drop2d`` and the activation's shape for ``drop``. One uniform draw
+        on ``device`` from ``generator`` covers them all."""
+        sizes = [batch * math.prod(shape) for _, shape in self.drop_specs]
+        if not sizes:
+            return []
+        u = torch.rand(sum(sizes), generator=generator, device=device)
+        return [(part >= rate).reshape(batch, *shape)
+                for part, (rate, shape) in zip(u.split(sizes), self.drop_specs)]
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                masks: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True) -> torch.Tensor:
+        """``train``: dropout is active and batch norm uses batch statistics.
+        ``masks``: the dropout keep masks (see :meth:`draw_masks`), drawn
+        from ``generator`` when None. ``update_stats``: see
+        :class:`BatchNorm`."""
         cd = self.compute_dtype
         x = x.to(cd)
-        conv_i = bn_i = dense_i = 0
+        if train and self.drop_specs:
+            if masks is None:
+                masks = self.draw_masks(x.shape[0], generator, x.device)
+            if len(masks) != len(self.drop_specs):
+                raise ValueError(f"{len(masks)} dropout masks for {len(self.drop_specs)} dropout ops")
+        conv_i = bn_i = dense_i = drop_i = 0
         skip_next = False
         for idx, op in enumerate(self.plan):
             if skip_next:
@@ -175,8 +240,12 @@ class PlanSequential(nn.Module):
             elif kind == "bn":
                 # flax computes the normalisation in float32 (its statistics
                 # and parameters) and casts the result to the compute type
-                x = getattr(self, f"bn_{bn_i}")(x.float()).to(cd)
+                x = getattr(self, f"bn_{bn_i}")(x.float(), train, update_stats).to(cd)
                 bn_i += 1
+            elif kind in ("drop2d", "drop"):
+                if train and op[1] > 0.0:
+                    x = apply_dropout(x, masks[drop_i], op[1])
+                    drop_i += 1
             elif kind == "dense":
                 x = F.linear(
                     x, cast_cached(getattr(self, f"dense_{dense_i}_kernel"), cd),
@@ -187,7 +256,6 @@ class PlanSequential(nn.Module):
                 x = x.reshape(x.shape[0], -1)
             elif kind == "reshape":
                 x = x.reshape(x.shape[0], *op[1])
-            # "drop2d" / "drop": identity in eval
         return x
 
 

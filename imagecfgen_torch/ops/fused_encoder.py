@@ -11,7 +11,10 @@ after the bias and LeakyReLU. float32 tensors go through 3xTF32 (hi/lo
 split operands, three products), never through single-pass TF32.
 
 ``fused_encoder_forward`` launches the kernel for CUDA tensors (or raises)
-and runs the plain version for CPU tensors; nothing falls back. Its
+and runs the plain version for CPU tensors; nothing falls back. The kernel
+has no backward, as the TPU kernel has no VJP: asked for a gradient off the
+CPU, the function raises rather than return a result that silently carries
+none (``models.bigan.Encoder`` takes its differentiable route then). Its
 ``launches`` attribute counts the calls that reached the kernel. The packed
 weights (K-major, split for float32) are made once per parameter and kept
 until the parameter changes (``tensor_core.cached``).
@@ -222,6 +225,11 @@ def fused_encoder_forward(
                    f"layer {i}: weights are {t.dtype} on {t.device}, features {feats.dtype} on {feats.device}")
     if feats.device.type == "cpu":
         return fused_encoder_reference(feats, pairs, conv_ops)
+    wants_grad = torch.is_grad_enabled() and (
+        feats.requires_grad or any(t.requires_grad for pair in pairs for t in pair))
+    _check(not wants_grad,
+           "the kernel has no backward; call it under torch.no_grad() or on detached tensors, "
+           "or differentiate the trunk's PlanSequential")
     _check(feats.device.type == "cuda", f"no kernel for device {feats.device}")
     _check(0 <= split < len(conv_ops), f"split {split} out of range")
     if split:

@@ -7,11 +7,13 @@
 - slant:      N(0,1) -> spline -> Affine(s_min, s_range)
 - digit:      empirical Categorical(10)
 
-This slice carries inference; the MLE fit comes with the training slice.
+``fit`` trains the three continuous mechanisms by MLE with Adam(1e-2) over
+``steps`` epochs of 10k-sample batches and fits the digit by its empirical
+frequencies.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from ..flows.bijectors import (
     SplineT,
 )
 from ..flows.distributions import FlowDist, Normal
+from .fit import fit_mle, trainable_copy
 from .graph import CausalGraph, tree_map
 from .module import CategoricalCM, FlowCM
 
@@ -70,7 +73,8 @@ def build_mnist_graph(
 
 
 class MNISTAttributeSCM:
-    """Graph + params/state bundle with persistence and inference helpers."""
+    """Graph + params/state bundle with fit, persistence and inference
+    helpers."""
 
     CONT = ("thickness", "intensity", "slant")
 
@@ -82,6 +86,63 @@ class MNISTAttributeSCM:
     def to(self, device: DeviceLike) -> "MNISTAttributeSCM":
         move = lambda t: (t if torch.is_tensor(t) else torch.from_numpy(np.array(t))).to(device)  # noqa: E731
         return MNISTAttributeSCM(self.graph, tree_map(move, self.params), tree_map(move, self.state))
+
+    # ------------------------------------------------------------ training
+
+    @staticmethod
+    def fit(
+        attrs: Mapping[str, np.ndarray],
+        steps: int = 2000,
+        batch_size: int = 10_000,
+        learning_rate: float = 1e-2,
+        rng: Optional[torch.Generator] = None,
+        log_every: int = 0,
+        cond_hidden: Tuple[int, ...] = (32, 32),
+        spline: str = "rq",
+        device: DeviceLike = None,
+    ) -> "MNISTAttributeSCM":
+        """``attrs``: thickness/intensity/slant float arrays and int (or
+        one-hot) digit labels. ``cond_hidden``/``spline`` select the
+        mechanism architectures (see :func:`build_mnist_graph`). ``rng``
+        seeds the initial parameters and the shuffles."""
+        return MNISTAttributeSCM._fit(attrs, steps, batch_size, learning_rate, rng, log_every,
+                                      cond_hidden, spline, device)
+
+    @staticmethod
+    def _fit(attrs, steps, batch_size, learning_rate, rng, log_every, cond_hidden, spline,
+             device, init=None, perms: Optional[Iterable] = None) -> "MNISTAttributeSCM":
+        """:meth:`fit`, with the draws replaceable: ``init`` is a ``(params,
+        state)`` pair to start from, ``perms`` one permutation of the used
+        rows per epoch."""
+        device = resolve_device(device)
+        t = np.asarray(attrs["thickness"], np.float32).reshape(-1, 1)
+        i = np.asarray(attrs["intensity"], np.float32).reshape(-1, 1)
+        s = np.asarray(attrs["slant"], np.float32).reshape(-1, 1)
+        digit = np.asarray(attrs["digit"])
+        if digit.ndim > 1:
+            digit = digit.argmax(axis=1)
+
+        graph = build_mnist_graph(i.min(), i.max(), s.min(), s.max(),
+                                  cond_hidden=cond_hidden, spline=spline)
+        params, state = graph.init(rng, device) if init is None else init
+        params = tree_map(lambda v: torch.as_tensor(v).to(device), dict(params))
+        state = tree_map(lambda v: torch.as_tensor(v).to(device), dict(state))
+        params["digit"] = CategoricalCM.fit_params(torch.from_numpy(digit).to(device), 10)
+
+        batch_size = min(batch_size, len(t))
+        n_use = len(t) // batch_size * batch_size
+        data = torch.from_numpy(np.concatenate([t, i, s], axis=1)[:n_use]).to(device)
+        trainable = trainable_copy({k: params[k] for k in MNISTAttributeSCM.CONT}, device)
+
+        def batch_loss(tr, st, batch):
+            obs = {"thickness": batch[:, 0:1], "intensity": batch[:, 1:2], "slant": batch[:, 2:3]}
+            lp, new_st = graph.log_prob({**params, **tr}, st, obs, train=True)
+            return -(lp["thickness"] + lp["intensity"] + lp["slant"]).mean(), new_st
+
+        trainable, state = fit_mle(trainable, state, data, batch_loss, steps, batch_size,
+                                   learning_rate, rng, perms, log_every, "attribute-scm")
+        params.update(trainable)
+        return MNISTAttributeSCM(graph, params, state)
 
     # ------------------------------------------------------------ inference
 

@@ -97,6 +97,13 @@ class CategoricalCM(CausalModule):
     def init(self, rng=None):
         return {"logits": torch.zeros(self.n)}, {}
 
+    @staticmethod
+    def fit_params(values: torch.Tensor, n: int):
+        """Empirical-frequency MLE from int-coded observations."""
+        counts = torch.bincount(values.reshape(-1).long(), minlength=n).float()
+        probs = counts / counts.sum()
+        return {"logits": torch.log(torch.clamp(probs, min=1e-12))}
+
     def recover_noise(self, params, state, rng, value, context, noise=None):
         return value
 

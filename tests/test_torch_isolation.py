@@ -28,6 +28,17 @@ def test_no_banned_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_sources_cover_the_training_slice():
+    """The file list above is a glob; pin that it reaches the trainers, the
+    SCM fit loop and the checkpoint reader (which must decode msgpack without
+    importing it)."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert {"imagecfgen_torch/train/gan_trainer.py", "imagecfgen_torch/train/clf_trainer.py",
+            "imagecfgen_torch/train/optim.py", "imagecfgen_torch/train/_guards.py",
+            "imagecfgen_torch/scm/fit.py", "imagecfgen_torch/core/checkpoint.py",
+            "chip_smoke.py"} <= names
+
+
 def test_port_imports_with_jax_blocked():
     """Import every port module, and chip_smoke, in a fresh interpreter in
     which the banned packages cannot be imported."""
