@@ -53,11 +53,14 @@ T1. GAN training on MNIST at full width: ``GANTrainer`` on
 T6. checkpoint: T1's state saved, loaded into a fresh trainer, one more step
     from each on the same batch, each drawing its noise from its own
     (restored) generator, compared bit for bit;
-T1b. the time of each phase of a step (E+G update, recompute, D real, D fake);
+T1b. the time of each phase of a step (E+G update, recompute, D real, D fake),
+    and of one Adam step over D's parameters: the port's ``Adam`` with a
+    float32 and a bfloat16 ``mu`` beside ``torch.optim.Adam``;
 T1c. ``fused_encoder`` against its plain version at the shape the recompute
     phase gives it, (64, 28, 28, 5), whose launch plan differs from the
     serving batch's: on the trainer's own weights and attribute channels, and
-    on fan-in-scaled weights, whose O(1) outputs make the gate bite;
+    on fan-in-scaled weights, whose O(1) outputs make the gate bite; its
+    times there beside its plain version's and the ``F.conv2d`` stack's;
 T2. the gradient routes: the encoder's gradients through its
     ``PlanSequential`` against the plain im2col version's, ``fused_dense``'s
     ``dx``, ``dw``, ``db`` at (128, 4096, 1024) against autograd through its
@@ -80,9 +83,33 @@ T4. GAN training on AudioMNIST at full width, batch 32, 5 steps (``init_std``
 T5. both attribute SCMs' MLE ``fit`` on a few thousand synthetic rows: the
     NLL falls, and ``sample_cf`` on the fitted SCM passes the serving checks.
 
+and for the port's MNIST CLIs, run through their ``main`` with ``--device
+cuda`` as a user runs them:
+
+C1. a Morpho-MNIST-layout dataset in a temporary directory: 6,400 training
+    and 2,048 test rows of ``synthetic_digits`` glyphs, attributes from the
+    ground-truth SCM's closed form, packed by ``pack_mnist_attrs``;
+C2. training at full width: ``train_mnist_attribute_scm``,
+    ``train_mnist_clf`` (one epoch), ``train_mnist_image_scm`` (batch 64,
+    ``--d-updates-per-g-update 3``, one 100-step epoch), then ``--resume``
+    for a second, then ``--throughput`` for one into a fresh directory, and
+    ``train_morphomnist_ae`` (one epoch);
+C3. serving from those artifacts: ``mnist_gan_counterfactuals``,
+    ``mnist_bigan_score`` (``--limit 2048 --batch-size 512``),
+    ``mnist_generator_score`` (``--n 2048``);
+C4. checks: every artifact loads back, every PNG decodes to its size, the
+    scores lie in [0, 1], the resumed run goes from step 100 to 200, Adam's D
+    count is the step count with ``--throughput`` and twice it without, and
+    ``fused_encoder`` launches once a step (and once for the epoch's grid) in
+    both training modes, twice in the counterfactual CLI and at least once in
+    the score CLI, each count read around that CLI alone; then, for each
+    training mode, kernels a step and idle share under ``torch.profiler`` of
+    a trainer built as the CLI builds it (on the CLI's training rows, with a
+    seed of its own: not the CLI's run, whose steps/s sit beside them).
+
 The ``kernels`` line lists every kernel row (``launches``: the serving path's;
-``train_launches`` over ``train_steps``: the training path's); the last line
-of output is
+``train_launches`` over ``train_steps``: the training path's;
+``cli_launches``: each CLI run's); the last line of output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
 name and power limit of the card.
 """
@@ -113,6 +140,9 @@ PEAKS = (
     ("H100", 495.0, 989.0, 3.35),  # SXM: "NVIDIA H100 80GB HBM3"
 )
 TRAIN_STEPS = 100  # steps of each MNIST GAN-training epoch (warm-up and timed)
+# rows of the CLI phases' dataset (Morpho-MNIST has 60,000 and 10,000): one
+# training-CLI epoch is 100 steps at batch 64
+CLI_TRAIN, CLI_TEST = 6400, 2048
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPES = (F32, BF16)
 TAG = {F32: "f32", BF16: "bf16"}
@@ -660,12 +690,16 @@ def near_kink(what: str, a, b, total_gate: float = 1e-5) -> int:
     return flips
 
 
-def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev):
+def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev, peak, card):
     """The trunk kernel against its plain version at the shape a trainer's
     recompute phase gives it (``plan_gemm`` picks tiles and splits from the
     batch): on the trainer's own encoder weights and attribute channels, and
     on fan-in-scaled weights and N(0, 1) features of that shape, whose O(1)
-    outputs make the float32 gate bite."""
+    outputs make the float32 gate bite. Returns a line with the kernel's
+    times at that shape beside its plain version's, the ``F.conv2d``
+    stack's and the bound."""
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward, fused_encoder_reference, plan_conv_ops
+
     with torch.no_grad():
         feats = encoder.attr_channels(x, attrs)
         own = {n: p.detach() for n, p in encoder.trunk.named_parameters()}
@@ -675,8 +709,42 @@ def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev):
               f"relative error {err / top:.3e} (printed, not gated)")
         rng = np.random.default_rng(seed)
         probe = torch.from_numpy(rng.normal(0, 1, tuple(feats.shape)).astype(np.float32)).to(dev)
-        check_trunk(f"{name}, fan-in weights", trunk_params(plan, seed, dev, c_in=feats.shape[-1], std=None),
-                    probe, plan, F32)
+        err, cast, pairs, tfeats, _ = check_trunk(
+            f"{name}, fan-in weights", trunk_params(plan, seed, dev, c_in=feats.shape[-1], std=None),
+            probe, plan, F32)
+        conv_ops = plan_conv_ops(plan)
+        kernel_ms = time_ms(lambda: fused_encoder_forward(cast, tfeats, plan))
+        device = device_ms(lambda: fused_encoder_forward(cast, tfeats, plan), reps=20)
+        plain_ms = time_ms(lambda: fused_encoder_reference(tfeats, pairs, conv_ops), reps=5, warmup=1)
+        library_ms = time_ms(lambda: library_stack(tfeats, pairs, conv_ops))
+        library_device = device_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=20)
+    flops, nbytes = trunk_cost(tuple(tfeats.shape), pairs, conv_ops)
+    t_ops, t_bytes = flops / peak[0][F32] * 1e3, nbytes / peak[1] * 1e3
+    return {"kernel_at_training_shape": "fused_encoder", "trunk": name, "shape": list(tfeats.shape),
+            "dtype": "f32", "max_abs_err": err, "ms": kernel_ms, "device_ms": device,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_device_ms": library_device,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "card": card}
+
+
+def adam_steps_ms(params, tcfg):
+    """One Adam step over copies of ``params`` with fixed gradients: the
+    port's ``train/optim.py::Adam`` (flat moments) with a float32 and a
+    bfloat16 ``mu`` beside ``torch.optim.Adam`` (the library yardstick, which
+    the port does not use). The step is host-bound, so this is the host's
+    time to enqueue it."""
+    from imagecfgen_torch.train.optim import Adam
+
+    def fresh():
+        out = [p.detach().clone().requires_grad_(True) for p in params]
+        for p in out:
+            p.grad = torch.randn_like(p)
+        return out
+
+    kw = dict(lr=tcfg.learning_rate, betas=tuple(tcfg.betas), eps=1e-8)
+    opts = {"port": Adam(fresh(), **kw), "port_mu_bf16": Adam(fresh(), **kw, mu_dtype=BF16),
+            "torch_optim": torch.optim.Adam(fresh(), **kw, foreach=True)}
+    return {name: time_ms(opt.step) for name, opt in opts.items()}
 
 
 def gan_data(cfg, n: int, rng, dev):
@@ -691,7 +759,7 @@ def gan_data(cfg, n: int, rng, dev):
     return x.to(dev), {k: v.to(dev) for k, v in attrs.items()}
 
 
-def training_phases(args, dev, card):
+def training_phases(args, dev, card, peak):
     """Phases T1-T6. Returns ({kernel row name: (launches, steps)}, lines)."""
     import dataclasses
 
@@ -805,18 +873,19 @@ def training_phases(args, dev, card):
     ex, gz = tr.recompute(x, attrs, z)
     gan_line["phases_ms"] = {
         "draw_noise": time_ms(lambda: tr.draw_noise(bsz)),
-        "eg_update": time_ms(lambda: tr.eg_update(x, attrs, z, masks[0], masks[1])),
+        "eg_update": time_ms(lambda: tr.eg_update(x, attrs, z, masks[:2])),
         "recompute": time_ms(lambda: tr.recompute(x, attrs, z)),
         "d_update_real": time_ms(lambda: tr.d_update(x, ex, attrs, 1, masks[2])),
         "d_update_fake": time_ms(lambda: tr.d_update(gz, z, attrs, 0, masks[3])),
     }
+    gan_line["adam_step_ms"] = adam_steps_ms(tr.params_d, tcfg)
     lines.append(gan_line)
     if args.profile:
         profile_path(lambda: [tr.train_step(batch) for _ in range(5)], "chip_smoke_profile_train_f32.txt")
 
     # ---------------- T1c. the kernel at the shape the recompute gives it
-    trunk_at_training_shape(f"MNIST trunk at batch {bsz}", tr.model.encoder, x, attrs, cfg.enc_plan,
-                            args.seed + 35, dev)
+    lines.append(trunk_at_training_shape(f"MNIST trunk at batch {bsz}", tr.model.encoder, x, attrs,
+                                         cfg.enc_plan, args.seed + 35, dev, peak, card))
 
     # ------------------------------------------ T2. the gradient routes
     enc = Encoder(cfg, dev, seeded(args.seed + 25))
@@ -973,9 +1042,9 @@ def training_phases(args, dev, card):
     check(launches == asteps and atr.step == asteps, f"T4: {launches} launches in {atr.step} steps")
     changed(before, atr.model, "T4")
     check(atr.state_dict()["opt_d"]["count"] == 2 * asteps, "T4: Adam's D count")
-    trunk_at_training_shape(f"audio trunk at batch {ab}", atr.model.encoder, adata["image"][:ab],
-                            {k: v[:ab] for k, v in adata["attrs"].items()}, acfg.enc_plan,
-                            args.seed + 36, dev)
+    lines.append(trunk_at_training_shape(f"audio trunk at batch {ab}", atr.model.encoder, adata["image"][:ab],
+                                         {k: v[:ab] for k, v in adata["attrs"].items()}, acfg.enc_plan,
+                                         args.seed + 36, dev, peak, card))
     del atr, adata, before
 
     # ------------------------------------------------- T5. SCM fits
@@ -1037,6 +1106,214 @@ def training_phases(args, dev, card):
     check(bool((cf["native_speaker"] != obs["native_speaker"]).any()),
           "T5: native_speaker ignored its parent after the fit")
     return train_launches, lines
+
+
+def write_mnist_dataset(path: str, n_train: int, n_test: int, seed: int) -> None:
+    """A Morpho-MNIST-layout dataset: ``mnist-x-{split}.npy`` (uint8 glyphs
+    from the port's ``synthetic_digits``) and ``mnist-a-{split}.npy`` (the
+    13 columns of ``pack_mnist_attrs``), the attributes drawn from the
+    ground-truth SCM's closed form: t = Gamma(10, rate 5) + 0.5,
+    i = 191·sigmoid(0.5·e + 2t − 5) + 64 with e ~ N(0, 1), s = π·N(0, 0.1)."""
+    from imagecfgen_torch.core.attributes import one_hot, pack_mnist_attrs
+    from imagecfgen_torch.data.synthetic_digits import synthetic_digits
+
+    x, labels = synthetic_digits(n_train + n_test, seed)
+    rng = np.random.default_rng(seed + 1)
+    n = len(x)
+    t = rng.gamma(10, 1 / 5, n) + 0.5
+    i = 191 / (1 + np.exp(-(0.5 * rng.normal(0, 1, n) + 2 * t - 5))) + 64
+    s = np.pi * rng.normal(0, 0.1, n)
+    a = pack_mnist_attrs({"digit": one_hot(labels, 10), "thickness": t, "intensity": i, "slant": s})
+    os.makedirs(path, exist_ok=True)
+    for split, rows in (("train", slice(0, n_train)), ("test", slice(n_train, n))):
+        np.save(os.path.join(path, f"mnist-x-{split}.npy"), np.round(x[rows]).astype(np.uint8))
+        np.save(os.path.join(path, f"mnist-a-{split}.npy"), a[rows])
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_cli(name: str, dev, *argv):
+    """One CLI through its ``main`` on ``dev`` (``--device``), as a user runs
+    it, with both kernels' launch counts set to 0 just before and read just
+    after. Returns (seconds, what it printed, {kernel: launches}); a non-zero
+    exit fails."""
+    import contextlib
+    import importlib
+    import io
+
+    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward
+
+    main = importlib.import_module(f"imagecfgen_torch.cli.{name}").main
+    out = io.StringIO()
+    sync(dev)
+    fused_encoder_forward.launches = fused_dense_lrelu.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = main([*map(str, argv), "--device", dev.type])
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = {"fused_encoder": fused_encoder_forward.launches, "fused_dense": fused_dense_lrelu.launches}
+    text = out.getvalue()
+    print("".join(f"  {name}| {line}\n" for line in text.splitlines()), end="")
+    check(code == 0, f"{name} exited with {code}")
+    print(f"C {name}: {secs:.2f} s; launches {launches}")
+    return secs, text, launches
+
+
+def steps_per_s(text: str):
+    return [float(v) for v in re.findall(r"\(([0-9.]+) steps/s", text)]
+
+
+def printed_score(text: str, what: str) -> float:
+    m = re.search(rf"{what}: ([0-9.]+)", text)
+    check(m is not None, f"no '{what}' printed")
+    value = float(m.group(1))
+    check(np.isfinite(value) and 0.0 <= value <= 1.0, f"{what} {value} outside [0, 1]")
+    return value
+
+
+def step_profile(data, mode_kw, bsz: int, seed: int, dev, steps: int = 6):
+    """Kernels a step, device busy time a step and the idle share, under
+    torch.profiler after three warm-up steps, of a trainer built as the
+    training CLI builds it in one mode: full-width ``mnist_bigan_config()``,
+    ``--batch-size`` 64, ``--d-updates-per-g-update`` 3, on the CLI's
+    training rows. It is a trainer of its own (seed ``seed``), not the CLI's
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagecfgen_torch.models.bigan import BiGAN, mnist_bigan_config
+    from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    tr = GANTrainer(BiGAN(mnist_bigan_config(), dev, seeded(seed)),
+                    GANTrainConfig(batch_size=bsz, d_updates_per_g_update=3, **mode_kw), dev, seed=seed)
+    batches = [{"image": data["image"][i * bsz:(i + 1) * bsz],
+                "attrs": {k: v[i * bsz:(i + 1) * bsz] for k, v in data["attrs"].items()}}
+               for i in range(3 + steps)]
+    for b in batches[:3]:
+        tr.train_step(b)
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            tr.train_step(b)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    return {"profiled": f"a trainer built as the CLI builds it, seed {seed}, {steps} steps",
+            "kernels_per_step": sum(e.count for e in device) / steps, "device_ms_per_step": busy_ms / steps,
+            "profiled_ms_per_step": wall_ms / steps, "idle": 1 - busy_ms / wall_ms}
+
+
+def cli_phases(args, dev, card):
+    """Phases C1-C4: the port's MNIST CLIs end to end on a synthetic
+    Morpho-MNIST dataset, as a user runs them. Returns ({kernel: {CLI run:
+    launches}}, lines)."""
+    from imagecfgen_torch.cli.common import (
+        load_attribute_scm,
+        load_bigan,
+        load_classifier,
+        load_mnist_training_data,
+        read_png,
+        scale_attrs,
+    )
+    from imagecfgen_torch.cli.train_mnist_image_scm import parser as gan_parser
+    from imagecfgen_torch.cli.train_mnist_image_scm import throughput_kw
+    from imagecfgen_torch.models.classifier import AutoEncoderConfig, mnist_classifier_config
+
+    launches, lines, secs = {"fused_encoder": {}, "fused_dense": {}}, [], {}
+    bsz, steps = 64, CLI_TRAIN // 64
+
+    def cli(label, name, *argv):
+        t, text, counts = run_cli(name, dev, *argv)
+        secs[label] = t
+        for k, n in counts.items():
+            launches[k][label] = n
+        return text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, models, fast = (os.path.join(tmp, d) for d in ("data", "models", "fast"))
+        # --------------------------------------------------- C1. the dataset
+        t0 = time.perf_counter()
+        write_mnist_dataset(data, CLI_TRAIN, CLI_TEST, args.seed + 40)
+        secs["dataset"] = time.perf_counter() - t0
+        print(f"C1 dataset: {CLI_TRAIN} + {CLI_TEST} glyphs in {secs['dataset']:.2f} s")
+
+        # ------------------------------------ C2. training at full width
+        cli("train_mnist_attribute_scm", "train_mnist_attribute_scm", "--data-dir", data,
+            "--output-path", models, "--steps", 100)
+        cli("train_mnist_clf", "train_mnist_clf", "--data-dir", data, "--output-path", models, "--epochs", 1)
+        gan = ("--data-dir", data, "--batch-size", bsz, "--d-updates-per-g-update", 3, "--save-images-every", 1)
+        ref = cli("train_mnist_image_scm", "train_mnist_image_scm", *gan, "--output-path", models,
+                  "--steps", 1)
+        resumed = cli("train_mnist_image_scm --resume", "train_mnist_image_scm", *gan,
+                      "--output-path", models, "--steps", 2, "--resume")
+        thr = cli("train_mnist_image_scm --throughput", "train_mnist_image_scm", *gan,
+                  "--output-path", fast, "--steps", 1, "--throughput")
+        cli("train_morphomnist_ae", "train_morphomnist_ae", "--data-dir", data, "--output-path", models,
+            "--epochs", 1)
+
+        # -------------------------------- C3. serving from those artifacts
+        cf_png = os.path.join(tmp, "mnist-gan-counterfactuals.png")
+        cli("mnist_gan_counterfactuals", "mnist_gan_counterfactuals", "--data-dir", data,
+            "--model-dir", models, "--output", cf_png)
+        cf_acc = printed_score(cli("mnist_bigan_score", "mnist_bigan_score", "--data-dir", data,
+                                   "--model-dir", models, "--limit", 2048, "--batch-size", 512),
+                               "cf digit accuracy")
+        gen_acc = printed_score(cli("mnist_generator_score", "mnist_generator_score", "--model-dir", models,
+                                    "--n", 2048), "generated-sample digit accuracy")
+
+        # ------------------------------------------ C4. checks and times
+        for f in ("mnist-bigan.tar", "mnist-attribute-scm.tar", "mnist_clf.tar", "ae-all.tar",
+                  "attribute-scm-hists.png", "epoch-1.png", "epoch-2.png"):
+            check(os.path.exists(os.path.join(models, f)), f"C4: {f} was not written")
+        state, _, meta = load_bigan(os.path.join(models, "mnist-bigan.tar"), dev)
+        fstate, _, _ = load_bigan(os.path.join(fast, "mnist-bigan.tar"), dev)
+        check(f"at epoch 1 (step {steps})" in resumed, "C4: the resumed run did not start at its step")
+        check(meta["epoch"] == 2 and state["step"] == 2 * steps,
+              f"C4: the resumed run ended at epoch {meta['epoch']}, step {state['step']}")
+        check(state["opt_d"]["count"] == 2 * state["step"], "C4: reference mode's Adam D count")
+        check(fstate["step"] == steps and fstate["opt_d"]["count"] == fstate["step"],
+              f"C4: --throughput took {fstate['opt_d']['count']} D updates in {fstate['step']} steps")
+        check({m.dtype for m in fstate["opt_d"]["mu"].values()} == {torch.bfloat16},
+              "C4: --throughput keeps Adam's mu in float32")
+        x = torch.from_numpy(load_mnist_training_data(data, "test")[0][:8]).to(dev)
+        scm = load_attribute_scm(os.path.join(models, "mnist-attribute-scm.tar"), dev)
+        check(all(torch.isfinite(v.float()).all() for v in scm.sample(seeded(0), n=64, device=dev).values()),
+              "C4: the attribute SCM's samples")
+        with torch.no_grad():
+            logits = load_classifier(os.path.join(models, "mnist_clf.tar"), mnist_classifier_config(), dev)(x)
+            recon = load_classifier(os.path.join(models, "ae-all.tar"), AutoEncoderConfig(), dev)(x)
+        check(logits.shape == (8, 10) and bool(torch.isfinite(logits).all()), "C4: the classifier")
+        check(recon.shape == (8, 28, 28, 1) and bool(torch.isfinite(recon).all()), "C4: the autoencoder")
+        for path, shape in ((os.path.join(models, "attribute-scm-hists.png"), (3 * 48, 100)),
+                            (os.path.join(models, "epoch-2.png"), (3 * 28, 10 * 28)),
+                            (os.path.join(fast, "epoch-1.png"), (3 * 28, 10 * 28)), (cf_png, (3 * 28, 8 * 28))):
+            check(read_png(path).shape == shape, f"C4: {path} decodes to {read_png(path).shape}, not {shape}")
+        enc = launches["fused_encoder"]
+        for label in ("train_mnist_image_scm", "train_mnist_image_scm --resume",
+                      "train_mnist_image_scm --throughput"):  # once a step, once for the epoch's grid
+            check(enc[label] == steps + 1, f"C4: {label}: {enc[label]} fused_encoder launches in {steps} steps")
+        check(enc["mnist_gan_counterfactuals"] == 2, "C4: the counterfactual CLI's fused_encoder launches")
+        check(enc["mnist_bigan_score"] >= 1, "C4: the score CLI did not reach fused_encoder")
+
+        x_np, attrs, scaler = load_mnist_training_data(data)
+        rows = {"image": torch.from_numpy(x_np[:9 * bsz]).to(dev),
+                "attrs": {k: torch.from_numpy(v[:9 * bsz]).to(dev) for k, v in scale_attrs(scaler, attrs).items()}}
+        for mode, flags in {"reference": [], "throughput": ["--throughput"]}.items():
+            prof = step_profile(rows, throughput_kw(gan_parser.parse_args(flags)), bsz, args.seed + 41, dev)
+            rates = steps_per_s(ref + resumed if mode == "reference" else thr)
+            lines.append({"cli_training": f"train_mnist_image_scm {' '.join(flags)}".strip(), "batch": bsz,
+                          "d_updates_per_g_update": 3, "steps_per_epoch": steps, "cli_steps_per_s": rates,
+                          "profile_of_a_like_trainer": prof, "card": card})
+    lines.append({"cli_seconds": secs, "cf_digit_accuracy": cf_acc,
+                  "generated_sample_digit_accuracy": gen_acc, "card": card})
+    return launches, lines
 
 
 def main(argv=None) -> int:
@@ -1187,12 +1464,19 @@ def main(argv=None) -> int:
     kernels += audio_rows
 
     # ------------------------------------------------ T1-T6. training
-    train_launches, train_lines = training_phases(args, dev, card)
+    train_launches, train_lines = training_phases(args, dev, card, peak)
     for kernel in kernels:  # training is float32: the bf16 rows have no training launches
         count, steps = train_launches[kernel["name"]] if kernel["dtype"] == "f32" else (None, None)
         check(count is None or count > 0, f"the training path did not reach the {kernel['name']} kernel")
         kernel.update(train_launches=count, train_steps=steps)
-    for line in engine_lines + score_lines + train_lines:
+
+    # ---------------------------------------------- C1-C4. the MNIST CLIs
+    cli_launches, cli_lines = cli_phases(args, dev, card)
+    for kernel in kernels:  # the CLIs run float32 MNIST models: the f32 MNIST rows
+        kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
+                                  and kernel["dtype"] == "f32" else None)
+    check(sum(cli_launches["fused_encoder"].values()) > 0, "the CLIs did not reach the fused_encoder kernel")
+    for line in engine_lines + score_lines + train_lines + cli_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))
 

@@ -1,0 +1,205 @@
+"""What the port's CLIs share: data loading, artifacts and image grids (port
+of ``imagecfgen_tpu/cli/common.py``).
+
+Artifacts keep the JAX package's names (``mnist-bigan.tar``,
+``mnist-attribute-scm.tar``, ``mnist_clf.tar``, ``ae-{cls}.tar``). The port
+writes its own files (magic ``ICFP``, ``core.checkpoint.save_train_state``)
+and reads both kinds, told apart by their magic, never by their name: a
+model directory that the JAX CLIs wrote (magic ``ICFT``) is carried across
+by ``core.convert`` and can be scored, or resumed, here.
+
+Image grids are 8-bit grayscale PNGs written with ``zlib`` and ``struct``
+(the machine with the card has no matplotlib).
+"""
+from __future__ import annotations
+
+import os
+import struct
+import warnings
+import zlib
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.attributes import MNIST_SPEC, AttributeScaler
+from ..core.checkpoint import checkpoint_format, load_checkpoint, load_train_state, save_train_state
+from ..core.convert import (
+    autoencoder_params_from_jax,
+    classifier_params_from_jax,
+    gan_state_from_jax,
+    scm_from_jax_state_dict,
+)
+from ..data.mnist import load_mnist_arrays
+from ..device import DeviceLike
+from ..models.bigan import BiGAN, BiGANConfig
+from ..models.classifier import AutoEncoderConfig, ClassifierConfig, CNNClassifier, ConvAutoEncoder
+from ..scm.mnist import MNISTAttributeSCM
+
+# ------------------------------------------------------------------ data
+
+
+def load_mnist_training_data(data_dir: str, split: str = "train"):
+    """Returns (x_scaled (N,28,28,1) in [-1,1], attrs raw dict, scaler).
+
+    Images scale [0,255] -> [-1,1]; the scaler carries the split's min/max
+    of the continuous attributes.
+    """
+    x, attrs = load_mnist_arrays(data_dir, split)
+    x = (2.0 * x.reshape((-1, 28, 28, 1)) / 255.0 - 1.0).astype(np.float32)
+    scaler = AttributeScaler.fit(MNIST_SPEC, attrs)
+    return x, attrs, scaler
+
+
+def scale_attrs(scaler: AttributeScaler, attrs: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``scaler.scale`` on a dict of numpy arrays."""
+    scaled = scaler.scale({k: torch.from_numpy(np.asarray(v)) for k, v in attrs.items()})
+    return {k: v.numpy() for k, v in scaled.items()}
+
+
+def artifact_path(override, model_dir, default_name):
+    """Resolve a model artifact: a per-file flag (e.g. ``--image-model``)
+    overrides the ``--model-dir`` layout when given."""
+    return override if override else os.path.join(model_dir or ".", default_name)
+
+
+def has_test_split(data_dir: str) -> bool:
+    return os.path.exists(os.path.join(data_dir, "mnist-x-test.npy"))
+
+
+# ------------------------------------------------------------------ BiGAN
+
+
+def save_bigan(path: str, state: Mapping, scaler: AttributeScaler, meta: Optional[Dict] = None):
+    """A ``GANTrainer.state_dict()`` and the scaler (as tensors: the port's
+    files are read back with ``weights_only=True``)."""
+    scaler_t = {part: {k: torch.as_tensor(v) for k, v in stats.items()}
+                for part, stats in scaler.state_dict().items()}
+    save_train_state(path, {"trainer": dict(state), "scaler": scaler_t},
+                     meta={"kind": "bigan", "carries_rng": state.get("rng") is not None, **(meta or {})})
+
+
+def load_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, AttributeScaler, Dict]:
+    """``(trainer state, scaler, meta)`` of either kind of file; the state
+    in ``GANTrainer.state_dict()``'s form (from a JAX file: no generator)."""
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        state = payload["trainer"]
+        stats = {part: {k: v.cpu().numpy() for k, v in d.items()} for part, d in payload["scaler"].items()}
+    else:
+        tree, meta = load_checkpoint(path)
+        state, stats = gan_state_from_jax(tree), tree["scaler"]
+    if meta.get("scaler_valid") is False:
+        warnings.warn(
+            f"{path} was converted without training data: its attribute "
+            "scaler is an identity placeholder and downstream counterfactuals "
+            "will consume unscaled attributes. Re-convert with --data-dir.",
+            stacklevel=2,
+        )
+    return state, AttributeScaler.from_state_dict(MNIST_SPEC, stats), meta
+
+
+def bigan_from_state(state: Mapping, cfg: BiGANConfig, device: DeviceLike = None) -> BiGAN:
+    """A ``BiGAN`` for ``cfg`` holding the E, G and D of a trainer state."""
+    model = BiGAN(cfg, device)
+    model.encoder.load_state_dict(state["E"])
+    model.generator.load_state_dict(state["G"])
+    model.discriminator.load_state_dict(state["D"])
+    return model
+
+
+# ------------------------------------------------------------------ SCM
+
+
+def save_attribute_scm(path: str, scm: MNISTAttributeSCM):
+    save_train_state(path, scm.state_dict(), meta={"kind": "attribute-scm-mnist"})
+
+
+def load_attribute_scm(path: str, device: DeviceLike = None) -> MNISTAttributeSCM:
+    if checkpoint_format(path) == "torch":
+        return MNISTAttributeSCM.from_state_dict(load_train_state(path, device)[0], device)
+    tree = dict(load_checkpoint(path)[0])
+    tree["bounds"] = {k: tuple(float(b) for b in v) for k, v in tree["bounds"].items()}
+    return scm_from_jax_state_dict(tree, device)
+
+
+# ---------------------------------------------- classifier, autoencoder
+
+Supervised = Union[CNNClassifier, ConvAutoEncoder]
+
+
+def save_classifier(path: str, state: Mapping, meta: Optional[Dict] = None):
+    """A ``SupervisedTrainer.state_dict()`` (a classifier's or an
+    autoencoder's)."""
+    save_train_state(path, dict(state), meta=meta)
+
+
+def load_classifier(path: str, cfg: Union[ClassifierConfig, AutoEncoderConfig],
+                    device: DeviceLike = None) -> Supervised:
+    """The classifier (``ClassifierConfig``) or autoencoder
+    (``AutoEncoderConfig``) of either kind of file, in eval mode."""
+    if checkpoint_format(path) == "jax":
+        params = load_checkpoint(path)[0]["params"]
+        if isinstance(cfg, AutoEncoderConfig):
+            return autoencoder_params_from_jax(params, cfg, device).eval()
+        return classifier_params_from_jax(params, cfg, device).eval()
+    model = (ConvAutoEncoder if isinstance(cfg, AutoEncoderConfig) else CNNClassifier)(cfg, device)
+    model.load_state_dict(load_train_state(path, device)[0]["module"])
+    return model.eval()
+
+
+# ------------------------------------------------------------------ PNG
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+
+def save_grid_png(path: str, rows: Sequence, row_labels: Sequence[str], title: str = "",
+                  vmin: float = -1, vmax: float = 1) -> np.ndarray:
+    """Save a rows x n grid of equally sized images as an 8-bit grayscale
+    PNG, row ``r`` holding ``rows[r]``'s images left to right, ``vmin`` ->
+    0 and ``vmax`` -> 255; the title and the row labels go to stdout.
+    Returns the grid's pixels."""
+    grid = np.concatenate([np.concatenate([np.asarray(im, np.float32).squeeze() for im in imgs], axis=1)
+                           for imgs in rows], axis=0)
+    pix = np.clip(np.round((grid - vmin) / (vmax - vmin) * 255.0), 0, 255).astype(np.uint8)
+    h, w = pix.shape
+    raw = b"".join(b"\x00" + pix[r].tobytes() for r in range(h))  # filter type 0 a row
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_chunk(b"IEND", b""))
+    print(f"{path}: {title}" if title else path)
+    for r, label in enumerate(row_labels):
+        print(f"  row {r + 1}: {label}")
+    return pix
+
+
+def read_png(path: str) -> np.ndarray:
+    """The pixels ``(H, W)`` uint8 of an 8-bit grayscale PNG whose rows all
+    use filter type 0 (what :func:`save_grid_png` writes)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    at, idat, head = 8, b"", None
+    while at < len(data):
+        n, kind = struct.unpack(">I4s", data[at:at + 8])
+        body = data[at + 8:at + 8 + n]
+        if struct.unpack(">I", data[at + 8 + n:at + 12 + n])[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        at += 12 + n
+    if head is None or head[2:5] != (8, 0, 0):
+        raise ValueError(f"{path}: not an 8-bit grayscale PNG ({head})")
+    w, h = head[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].copy()

@@ -10,7 +10,7 @@ Conventions:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,4 +101,40 @@ class AttributeScaler:
         return AttributeScaler(spec, dict(state["mins"]), dict(state["maxs"]))
 
 
+def one_hot(labels, n: int) -> np.ndarray:
+    """Integer labels ``(...,)`` -> float32 one-hot ``(..., n)``."""
+    return np.asarray(np.asarray(labels)[..., None] == np.arange(n), np.float32)
+
+
+def split_columns(a: np.ndarray, spec: AttributeSpec, layout: Sequence[Tuple[str, int]]):
+    """Split a column-packed attribute matrix (e.g. the 13-column MNIST layout
+    ``[one-hot digit(10), thickness, intensity, slant]`` of the dataset files)
+    into the dict form used everywhere in this package.
+
+    ``layout`` is a list of (name, width) pairs in column order.
+    """
+    out: Dict[str, np.ndarray] = {}
+    i = 0
+    for name, width in layout:
+        col = a[:, i : i + width]
+        out[name] = col if width > 1 else col[:, 0]
+        i += width
+    return out
+
+
+MNIST_LAYOUT: Tuple[Tuple[str, int], ...] = (
+    ("digit", 10),
+    ("thickness", 1),
+    ("intensity", 1),
+    ("slant", 1),
+)
+
 MNIST_SPEC = AttributeSpec.create(digit=10, thickness=0, intensity=0, slant=0)
+
+
+def pack_mnist_attrs(attrs: Mapping[str, np.ndarray]) -> np.ndarray:
+    """Inverse of :func:`split_columns` for the 13-column MNIST layout."""
+    cols = [np.asarray(attrs["digit"], np.float32).reshape(-1, 10)]
+    for name in ("thickness", "intensity", "slant"):
+        cols.append(np.asarray(attrs[name], np.float32).reshape(-1, 1))
+    return np.concatenate(cols, axis=1)

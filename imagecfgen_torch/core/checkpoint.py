@@ -54,6 +54,20 @@ def _read_meta(f, path: str, magics: Tuple[bytes, ...]) -> Dict:
     return json.loads(meta.decode("utf-8"))
 
 
+def checkpoint_format(path: str) -> str:
+    """``"torch"`` for a file of :func:`save_train_state`, ``"jax"`` for one
+    the JAX package wrote, read from the magic (both kinds share the artifact
+    names); anything else raises, naming both magics."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == TORCH_MAGIC:
+        return "torch"
+    if magic == JAX_MAGIC:
+        return "jax"
+    raise ValueError(f"{path}: neither a port checkpoint (magic {TORCH_MAGIC!r}) nor one of the "
+                     f"JAX package (magic {JAX_MAGIC!r}); it starts with {magic!r}")
+
+
 def load_meta(path: str) -> Dict:
     """Only the JSON meta header of a checkpoint of either kind."""
     with open(path, "rb") as f:

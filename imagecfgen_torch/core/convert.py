@@ -14,9 +14,12 @@ flax. Layout changes:
   -> the tables of the same names;
 - ``bn_i`` scale/bias (params) and mean/var (batch stats) -> ``bn_i``;
 - a whole ``GANState`` (``gan_state_from_jax``): the three modules, the step
-  and both optax Adam states, each moment through the layout map of the
-  parameter it belongs to, into ``train.gan_trainer.GANTrainer``'s
-  ``state_dict()`` form;
+  and both Adam states, each moment through the layout map of the parameter
+  it belongs to, into ``train.gan_trainer.GANTrainer``'s ``state_dict()``
+  form. An Adam state is optax's ``(ScaleByAdamState, EmptyState)`` or the
+  JAX trainer's ``flat_adam`` dict of raveled vectors (cut back into the
+  parameters' tree in ``ravel_pytree``'s leaf order: dict keys sorted, each
+  leaf row-major); a bfloat16 ``mu`` arrives as its exact float32 values;
 - attribute-SCM trees (flows, MLP layer lists ``[{"w": (in, out), "b"}]``,
   categorical logits) carry across leaf for leaf.
 
@@ -26,14 +29,19 @@ depends on it.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike
 from ..models.bigan import BiGAN, BiGANConfig, Discriminator
-from ..models.classifier import ClassifierConfig, CNNClassifier
+from ..models.classifier import (
+    AutoEncoderConfig,
+    ClassifierConfig,
+    CNNClassifier,
+    ConvAutoEncoder,
+)
 from ..ops.conv import kernel_from_hwio, kernel_transpose_from_hwio
 from ..scm.audio_mnist import AudioMNISTAttributeSCM
 from ..scm.mnist import MNISTAttributeSCM
@@ -107,12 +115,36 @@ def discriminator_from_jax(vars_D: Mapping, cfg: BiGANConfig, device: DeviceLike
     return model
 
 
-def _adam_from_optax(opt_state: Sequence, to_state_dict) -> Dict:
-    """optax.adam's state ``(ScaleByAdamState(count, mu, nu), EmptyState())``
-    (as a tuple or list of dicts) -> ``train.optim.adam_state``'s form.
-    ``to_state_dict`` maps a tree shaped like the parameters to the port's
-    names and layouts."""
-    adam = opt_state[0]
+def _unravel(flat, params: Mapping):
+    """A vector raveled by ``jax.flatten_util.ravel_pytree`` -> a tree shaped
+    like ``params`` (leaves in sorted-key order, each row-major)."""
+    flat, at = np.asarray(flat), 0
+
+    def walk(tree):
+        nonlocal at
+        if isinstance(tree, Mapping):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        n = int(np.prod(np.shape(tree)))
+        at += n
+        return flat[at - n:at].reshape(np.shape(tree))
+
+    out = walk(params)
+    if at != flat.size:
+        raise ValueError(f"a flat Adam moment of {flat.size} values for {at} parameters")
+    return out
+
+
+def _adam_from_optax(opt_state, to_state_dict, params: Mapping) -> Dict:
+    """An Adam state of the JAX trainer -> ``train.optim.adam_state``'s form:
+    optax.adam's ``(ScaleByAdamState(count, mu, nu), EmptyState())`` (as a
+    tuple or list of dicts), or ``flat_adam``'s ``{"count", "mu", "nu"}`` of
+    vectors raveled over ``params``. ``to_state_dict`` maps a tree shaped
+    like the parameters to the port's names and layouts."""
+    if isinstance(opt_state, Mapping):  # flat_adam
+        adam = dict(opt_state, mu=_unravel(opt_state["mu"], params),
+                    nu=_unravel(opt_state["nu"], params))
+    else:
+        adam = opt_state[0]
     return {"count": int(np.asarray(adam["count"])), "mu": to_state_dict(adam["mu"]),
             "nu": to_state_dict(adam["nu"])}
 
@@ -133,8 +165,10 @@ def gan_state_from_jax(tree: Mapping) -> Dict:
         "E": encoder_state_dict_from_jax(tree["params_E"]),
         "G": generator_state_dict_from_jax(tree["params_G"]),
         "D": discriminator_state_dict_from_jax(vars_D["params"], vars_D.get("batch_stats", {})),
-        "opt_eg": _adam_from_optax(tree["opt_eg"], eg),
-        "opt_d": _adam_from_optax(tree["opt_d"], discriminator_state_dict_from_jax),
+        "opt_eg": _adam_from_optax(tree["opt_eg"], eg,
+                                   {"E": tree["params_E"], "G": tree["params_G"]}),
+        "opt_d": _adam_from_optax(tree["opt_d"], discriminator_state_dict_from_jax,
+                                  vars_D["params"]),
         "step": int(np.asarray(tree["step"])),
         "rng": None,
     }
@@ -163,6 +197,17 @@ def classifier_params_from_jax(
     params (its ``trunk`` tree)."""
     model = CNNClassifier(cfg, device)
     model.trunk.load_state_dict(plan_state_dict_from_jax(params["trunk"]))
+    return model
+
+
+def autoencoder_params_from_jax(
+    params: Mapping, cfg: AutoEncoderConfig, device: DeviceLike = None
+) -> ConvAutoEncoder:
+    """A port ``ConvAutoEncoder`` for ``cfg`` holding the JAX autoencoder's
+    params (its ``encoder`` and ``decoder`` trees)."""
+    model = ConvAutoEncoder(cfg, device)
+    model.encoder.load_state_dict(plan_state_dict_from_jax(params["encoder"]))
+    model.decoder.load_state_dict(plan_state_dict_from_jax(params["decoder"]))
     return model
 
 

@@ -9,11 +9,11 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means ``cuda``; raise rather than run on the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means ``cuda``; raise rather than run on the CPU unasked, and
+    raise for a ``cuda`` device when there is no card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device

@@ -5,8 +5,10 @@ One CNN classifier over plan data covers the MNIST digit classifier, the
 binary per-digit oracles, the AudioMNIST attribute classifier and the NARW
 call-type classifier. The AudioMNIST and NARW heads are ``dense`` followed
 by ``lrelu``, so ``PlanSequential`` runs them through
-``ops.fused_dense.fused_dense_lrelu``. The per-class conv autoencoders come
-with the MNIST scoring slice.
+``ops.fused_dense.fused_dense_lrelu``. The per-class conv autoencoder of the
+CF realism metric is two plans, ``encoder`` and ``decoder``; neither has a
+dense layer followed directly by LeakyReLU (the decoder's stem is dense ->
+reshape -> lrelu), so it reaches no kernel of its own.
 """
 from __future__ import annotations
 
@@ -118,3 +120,45 @@ def narw_classifier_config(num_classes: int = 3, width: float = 1.0) -> Classifi
         ("dense", num_classes),
     )
     return ClassifierConfig(plan=plan, image_size=(256, 256), n_classes=num_classes)
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoEncoderConfig:
+    latent_dim: int = 100
+    image_size: Tuple[int, int] = (28, 28)
+    compute_dtype: torch.dtype = torch.float32  # parameters stay float32
+
+
+class ConvAutoEncoder(nn.Module):
+    """Per-class conv autoencoder for the CF realism metric (latent 100 by
+    default): NHWC images in [-1, 1] -> f32 reconstructions of the same
+    shape."""
+
+    def __init__(self, cfg: AutoEncoderConfig, device: DeviceLike = None,
+                 rng: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        lr = ("lrelu", 0.2)
+        enc_plan = (
+            ("conv", 32, 3, 2, 1), lr,     # 28 -> 14
+            ("conv", 64, 3, 2, 1), lr,     # 14 -> 7
+            ("conv", 128, 3, 2, 1), lr,    # 7 -> 4
+            ("flatten",),
+            ("dense", cfg.latent_dim),
+        )
+        dec_plan = (
+            ("dense", 4 * 4 * 128),
+            ("reshape", (4, 4, 128)), lr,
+            ("convT", 64, 3, 2, 1), lr,    # 4 -> 7
+            ("convT", 32, 4, 2, 1), lr,    # 7 -> 14
+            ("convT", 1, 4, 2, 1),         # 14 -> 28
+            ("tanh",),
+        )
+        self.encoder = PlanSequential(enc_plan, (*cfg.image_size, 1), None, device, rng,
+                                      cfg.compute_dtype)
+        self.decoder = PlanSequential(dec_plan, (cfg.latent_dim,), None, device, rng,
+                                      cfg.compute_dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.decoder(self.encoder(x, train=train), train=train).float()

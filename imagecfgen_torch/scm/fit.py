@@ -11,6 +11,7 @@ from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..train.optim import Adam, assign_grads
 from .graph import tree_map
 
 
@@ -49,8 +50,8 @@ def fit_mle(
     epoch (for a test that must shuffle as another package did)."""
     n = data.shape[0]
     nb = n // batch_size
-    # optax.adam(lr): betas 0.9 and 0.999, eps 1e-8, as torch.optim.Adam's defaults
-    opt = torch.optim.Adam(leaves(trainable), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    params = leaves(trainable)
+    opt = Adam(params, learning_rate, (0.9, 0.999))  # optax.adam(lr)
     gen = torch.Generator(device=data.device)
     gen.manual_seed(int(torch.randint(0, 2 ** 62, (1,), generator=rng)))
     perms = iter(perms) if perms is not None else None
@@ -63,8 +64,7 @@ def fit_mle(
         total = torch.zeros((), device=data.device)
         for i in range(nb):
             loss, state = batch_loss(trainable, state, batches[i])
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
+            assign_grads(params, loss)
             opt.step()
             state = tree_map(lambda t: t.detach(), state)
             total += loss.detach()

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ._guards import require_full_batch, resolve_batch
-from .optim import adam_state, assign_grads, load_adam_state
+from .optim import Adam, adam_state, assign_grads, load_adam_state
 
 LOSSES = ("ce", "bce", "mse")
 
@@ -49,8 +49,8 @@ class SupervisedTrainer:
         self.module = module.to(self.device)
         self.tcfg = tcfg
         self.params = list(module.parameters())
-        # optax.adam(lr): betas 0.9 and 0.999, eps 1e-8, torch's defaults too
-        self.opt = torch.optim.Adam(self.params, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        # optax.adam(lr)'s defaults: betas 0.9 and 0.999, eps 1e-8
+        self.opt = Adam(self.params, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
         self.step = 0
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self._fit_batch: Optional[int] = None

@@ -24,6 +24,21 @@ An epoch keeps the dataset on the device, draws its permutation there from
 the trainer's own generator, drops the ragged tail and accumulates the
 metrics on the device: one fetch per epoch, none inside the step loop.
 
+Opt-in modes, all off by default (the JAX package's throughput options,
+``imagecfgen_tpu/train/gan_trainer.py:121-140``; ``train_mnist_image_scm
+--throughput`` sets the first three):
+
+- ``fused_d_steps``: **one** D update a step on the concatenated pairs
+  ``[x; G(z)]``, ``[E(x); z]`` with loss ``bce(d_valid, 1) + bce(d_fake, 0)``
+  (Adam's D count rises by one a step); D's batch norm sees the 2B batch;
+- ``fused_eg_d``: the E+G phase's two D forwards as one over the same 2B
+  batch;
+- ``mu_dtype=torch.bfloat16``: Adam's first moment stored in bfloat16.
+
+The JAX package's fourth mode, ``flat_adam``, is no option here: the port's
+``Adam`` always keeps each moment in one buffer per network, and
+``core.convert`` reads the JAX package's flat states by parameter name.
+
 Every draw of a step (``z`` and the dropout masks of its D forwards) is
 injectable, so that a test can hand this trainer and the JAX one the same
 numbers. Training is float32 (``compute_dtype=torch.float32``).
@@ -41,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DeviceLike, resolve_device
 from ..models.bigan import BiGAN
 from ._guards import require_full_batch, resolve_batch
-from .optim import adam_state, assign_grads, load_adam_state
+from .optim import Adam, adam_state, assign_grads, load_adam_state
 
 Masks = Sequence[torch.Tensor]
 METRICS = ("loss_EG", "loss_D", "D_score", "EG_score")
@@ -66,6 +81,19 @@ class GANTrainConfig:
     # rematerialise the E, G and D forwards in the backward pass
     # (torch.utils.checkpoint): more operations for fewer live activations
     remat: bool = False
+    # the opt-in modes of the module docstring: Adam's first moment stored in
+    # this type (None: float32); one D update on the concatenated pairs; one
+    # D forward in the E+G phase
+    mu_dtype: Optional[torch.dtype] = None
+    fused_d_steps: bool = False
+    fused_eg_d: bool = False
+
+
+def _concat_pairs(x_a, x_b, z_a, z_b, attrs):
+    """Two (x, z) pairs of D inputs as one 2B batch ``[a; b]``, the
+    attributes repeated (the JAX package's ``_concat_pairs``)."""
+    return (torch.cat([x_a, x_b]), torch.cat([z_a, z_b]),
+            {k: torch.cat([v, v]) for k, v in attrs.items()})
 
 
 class GANTrainer:
@@ -82,25 +110,34 @@ class GANTrainer:
         self.tcfg = tcfg
         self.params_eg = [*model.encoder.parameters(), *model.generator.parameters()]
         self.params_d = list(model.discriminator.parameters())
-        # torch.optim.Adam computes optax.adam's update: m / (1 - b1^t) over
-        # sqrt(v / (1 - b2^t)) + eps, eps outside the root in both
-        adam = dict(lr=tcfg.learning_rate, betas=tuple(tcfg.betas), eps=1e-8)
-        self.opt_eg = torch.optim.Adam(self.params_eg, **adam)
-        self.opt_d = torch.optim.Adam(self.params_d, **adam)
+        adam = dict(lr=tcfg.learning_rate, betas=tuple(tcfg.betas), eps=1e-8,
+                    mu_dtype=tcfg.mu_dtype or torch.float32)
+        self.opt_eg = Adam(self.params_eg, **adam)
+        self.opt_d = Adam(self.params_d, **adam)
         self.step = 0
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self._fit_batch: Optional[int] = None
 
     # ---------------------------------------------------------- noise
 
+    def d_batches(self, batch: int) -> List[int]:
+        """The batch of each D forward of a step, in order: the E+G phase's
+        (one 2B forward with ``fused_eg_d``, else real and fake), the D
+        update's (one 2B with ``fused_d_steps``, else real and fake), then
+        the two exact diagnostics when they are on."""
+        t = self.tcfg
+        sizes = [2 * batch] if t.fused_eg_d else [batch, batch]
+        sizes += [2 * batch] if t.fused_d_steps else [batch, batch]
+        return sizes + ([batch, batch] if t.exact_reference_diagnostics else [])
+
     def draw_noise(self, batch: int) -> Tuple[torch.Tensor, List[List[torch.Tensor]]]:
-        """One step's ``z`` and the dropout masks of its D forwards, in the
-        order :meth:`train_step` takes them."""
+        """One step's ``z`` and the dropout masks of its D forwards, at the
+        batches of :meth:`d_batches`, in the order :meth:`train_step` takes
+        them."""
         z = torch.randn((batch, 1, 1, self.model.cfg.latent_dim), generator=self.rng,
                         device=self.device)
-        n = 6 if self.tcfg.exact_reference_diagnostics else 4
-        return z, [self.model.discriminator.draw_masks(batch, self.rng, self.device)
-                   for _ in range(n)]
+        return z, [self.model.discriminator.draw_masks(n, self.rng, self.device)
+                   for n in self.d_batches(batch)]
 
     # ---------------------------------------------------------- forwards
 
@@ -133,13 +170,19 @@ class GANTrainer:
 
     # ---------------------------------------------------------- the phases
 
-    def eg_update(self, x, attrs, z, masks_real: Masks, masks_fake: Masks) -> torch.Tensor:
+    def eg_update(self, x, attrs, z, masks: Sequence[Masks]) -> torch.Tensor:
         """One Adam update of E and G together on the label-swapped loss;
-        returns the loss."""
+        ``masks``: those of the phase's D forwards (one with ``fused_eg_d``,
+        else the real pair's and the fake pair's). Returns the loss."""
         ex = self._forward_e(x, attrs)
         gz = self._forward_g(z, attrs)
-        d_valid = self._forward_d(x, ex, attrs, masks_real)
-        d_fake = self._forward_d(gz, z, attrs, masks_fake)
+        if self.tcfg.fused_eg_d:
+            b = x.shape[0]
+            d = self._forward_d(*_concat_pairs(x, gz, ex, z, attrs), masks[0])
+            d_valid, d_fake = d[:b], d[b:]
+        else:
+            d_valid = self._forward_d(x, ex, attrs, masks[0])
+            d_fake = self._forward_d(gz, z, attrs, masks[1])
         loss = 0.5 * (bce_logits(d_valid, 0) + bce_logits(d_fake, 1))
         assign_grads(self.params_eg, loss)
         self.opt_eg.step()
@@ -161,41 +204,60 @@ class GANTrainer:
         self.opt_d.step()
         return loss.detach(), logits.detach()
 
+    def d_update_pairs(self, x, gz, ex, z, attrs, masks: Masks):
+        """``fused_d_steps``: one Adam update of D on the real and the fake
+        pair as one 2B batch, on ``bce(d_valid, 1) + bce(d_fake, 0)``;
+        returns the loss and both halves of the logits."""
+        b = x.shape[0]
+        logits = self._forward_d(*_concat_pairs(x, gz, ex, z, attrs), masks)
+        loss = bce_logits(logits[:b], 1) + bce_logits(logits[b:], 0)
+        assign_grads(self.params_d, loss)
+        self.opt_d.step()
+        logits = logits.detach()
+        return loss.detach(), logits[:b], logits[b:]
+
     # ---------------------------------------------------------- train step
 
     def train_step(self, batch: Mapping, z: Optional[torch.Tensor] = None,
                    masks: Optional[Sequence[Masks]] = None) -> Dict[str, torch.Tensor]:
         """One alternating-GAN step on ``batch`` (``{"image": (B, H, W, C),
         "attrs": {...}}`` on the trainer's device). ``z`` ``(B, 1, 1,
-        latent)`` and ``masks`` (one list of dropout keep masks per D forward:
-        the E+G phase's real and fake pair, the real update, the fake
-        update, then the two exact diagnostics when they are on) are drawn
-        from the trainer's generator when None. Returns the four metrics as
-        0-d tensors on the device; nothing is fetched."""
+        latent)`` and ``masks`` (one list of dropout keep masks per D forward,
+        at the batches of :meth:`d_batches`) are drawn from the trainer's
+        generator when None. Returns the four metrics as 0-d tensors on the
+        device; nothing is fetched."""
         x, attrs = batch["image"], batch["attrs"]
         if z is None or masks is None:
             drawn_z, drawn_masks = self.draw_noise(x.shape[0])
             z = drawn_z if z is None else z
             masks = drawn_masks if masks is None else masks
 
+        n_eg = 1 if self.tcfg.fused_eg_d else 2
+        eg_masks, masks = masks[:n_eg], masks[n_eg:]
         if self.step % self.tcfg.d_updates_per_g_update == 0:
-            loss_eg = self.eg_update(x, attrs, z, masks[0], masks[1])
+            loss_eg = self.eg_update(x, attrs, z, eg_masks)
         else:
             loss_eg = torch.zeros((), device=x.device)
 
         ex, gz = self.recompute(x, attrs, z)
-        loss_d1, d_valid = self.d_update(x, ex, attrs, 1, masks[2])
-        loss_d2, d_fake = self.d_update(gz, z, attrs, 0, masks[3])
+        if self.tcfg.fused_d_steps:
+            loss_d, d_valid, d_fake = self.d_update_pairs(x, gz, ex, z, attrs, masks[0])
+            masks = masks[1:]
+        else:
+            loss_d1, d_valid = self.d_update(x, ex, attrs, 1, masks[0])
+            loss_d2, d_fake = self.d_update(gz, z, attrs, 0, masks[1])
+            loss_d = loss_d1 + loss_d2
+            masks = masks[2:]
 
         if self.tcfg.exact_reference_diagnostics:
             with torch.no_grad():
                 D = self.model.discriminator
-                d_fake = D(gz, z, attrs, train=True, masks=masks[4])
-                d_valid = D(x, ex, attrs, train=True, masks=masks[5])
+                d_fake = D(gz, z, attrs, train=True, masks=masks[0])
+                d_valid = D(x, ex, attrs, train=True, masks=masks[1])
         self.step += 1
         return {
             "loss_EG": loss_eg,
-            "loss_D": loss_d1 + loss_d2,
+            "loss_D": loss_d,
             "D_score": torch.sigmoid(d_fake).mean(),   # D(G(z), z)
             "EG_score": torch.sigmoid(d_valid).mean(),  # D(x, E(x))
         }

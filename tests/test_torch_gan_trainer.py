@@ -21,8 +21,6 @@ relative plus 2e-5 of the tensor's largest entry (a gradient element that is
 a sum with cancellation keeps the absolute error of its terms); the metrics
 to 1e-5 relative.
 """
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +47,7 @@ from imagecfgen_torch.train.gan_trainer import (
     bce_logits,
     make_epoch_batches,
 )
+from imagecfgen_torch.train.optim import Adam
 
 LR = 1e-4
 B = 8
@@ -281,13 +280,7 @@ def test_epochs_run_on_device_resident_data_and_fetch_once(monkeypatch):
     fetches = []
     item, tolist = torch.Tensor.item, torch.Tensor.tolist
 
-    def spy_item(self):
-        # torch.optim.Adam reads its own step count, which it keeps on the host
-        if "/torch/optim/" not in sys._getframe(1).f_code.co_filename.replace("\\", "/"):
-            fetches.append("item")
-        return item(self)
-
-    monkeypatch.setattr(torch.Tensor, "item", spy_item)
+    monkeypatch.setattr(torch.Tensor, "item", lambda self: (fetches.append("item"), item(self))[1])
     monkeypatch.setattr(torch.Tensor, "tolist", lambda self: (fetches.append("tolist"), tolist(self))[1])
     metrics = tr.fit_epoch(tr.upload_dataset(x, attrs))
     assert fetches == ["tolist"]  # one fetch per epoch, none inside the step loop
@@ -321,18 +314,34 @@ def test_bce_logits_matches_jax(target):
         bce_logits(torch.from_numpy(x), 2)
 
 
-def test_torch_adam_is_optax_adam():
-    """One parameter, five steps with the trainer's Adam settings."""
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+def test_torch_adam_is_optax_adam(mu_dtype):
+    """The trainers' ``train/optim.py::Adam`` against ``optax.adam`` with the
+    GAN trainer's settings: three parameters of different shapes in one
+    optimiser (cut from its flat buffers), five steps; the parameters and
+    ``nu`` to float32 rounding, a bfloat16 ``mu`` to one of its ulps."""
+    shapes = [(3, 4), (7,), (2, 2, 3)]
     rng = np.random.default_rng(0)
-    w0 = rng.normal(0, 1, (7,)).astype(np.float32)
-    grads = rng.normal(0, 1, (5, 7)).astype(np.float32)
-    tx = optax.adam(LR, b1=0.5, b2=0.999)
-    w, opt = jnp.asarray(w0), tx.init(jnp.asarray(w0))
-    p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
-    topt = torch.optim.Adam([p], lr=LR, betas=(0.5, 0.999), eps=1e-8)
+    w0 = [rng.normal(0, 1, s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(0, 1, s).astype(np.float32) for s in shapes] for _ in range(5)]
+    tx = optax.adam(LR, b1=0.5, b2=0.999, mu_dtype=getattr(jnp, mu_dtype))
+    w = [jnp.asarray(v) for v in w0]
+    opt = tx.init(w)
+    ps = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in w0]
+    topt = Adam(ps, LR, (0.5, 0.999), mu_dtype=getattr(torch, mu_dtype))
     for g in grads:
-        upd, opt = tx.update(jnp.asarray(g), opt)
+        upd, opt = tx.update([jnp.asarray(v) for v in g], opt)
         w = optax.apply_updates(w, upd)
-        p.grad = torch.from_numpy(g.copy())
+        for p, v in zip(ps, g):
+            p.grad = torch.from_numpy(v.copy())
         topt.step()
-    np.testing.assert_allclose(p.detach().numpy(), np.asarray(w), rtol=1e-6, atol=1e-8)
+    mu, nu = topt.moments()
+    assert topt.count == int(opt[0].count) == 5
+    for i, p in enumerate(ps):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(w[i]), rtol=1e-6, atol=1e-8)
+        np.testing.assert_allclose(nu[i].numpy(), np.asarray(opt[0].nu[i]), rtol=1e-6, atol=1e-12)
+        want = np.asarray(opt[0].mu[i].astype(jnp.float32))
+        assert mu[i].dtype == getattr(torch, mu_dtype)
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        np.testing.assert_array_less(np.abs(mu[i].float().numpy() - want),
+                                     ulp * 1.001 if mu_dtype == "bfloat16" else 1e-6 * np.abs(want) + 1e-12)

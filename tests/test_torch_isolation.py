@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``imagecfgen_torch``, and not
-``chip_smoke.py``, imports JAX, flax, optax, msgpack or the JAX package; and
-its entry points run on the card unless asked for the CPU."""
+``chip_smoke.py``, imports JAX, flax, optax, msgpack or the JAX package, nor
+matplotlib or PIL (the machine with the card has neither); and its entry
+points run on the card unless asked for the CPU."""
 import ast
 import subprocess
 import sys
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "imagecfgen_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "imagecfgen_tpu", "matplotlib", "PIL")
 SOURCES = sorted((REPO / "imagecfgen_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -37,6 +38,18 @@ def test_sources_cover_the_training_slice():
             "imagecfgen_torch/train/optim.py", "imagecfgen_torch/train/_guards.py",
             "imagecfgen_torch/scm/fit.py", "imagecfgen_torch/core/checkpoint.py",
             "chip_smoke.py"} <= names
+
+
+def test_sources_cover_the_cli_slice():
+    """Pin that the glob reaches the CLI layer and the data modules it
+    reads through."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    clis = ("train_mnist_attribute_scm", "train_mnist_clf", "train_mnist_image_scm",
+            "mnist_gan_counterfactuals", "mnist_bigan_score", "mnist_generator_score",
+            "train_morphomnist_ae")
+    assert {f"imagecfgen_torch/cli/{m}.py" for m in ("common", *clis)} <= names
+    assert {"imagecfgen_torch/data/mnist.py", "imagecfgen_torch/data/synthetic_digits.py",
+            "imagecfgen_torch/morphomnist/io.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
