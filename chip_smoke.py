@@ -107,10 +107,42 @@ C4. checks: every artifact loads back, every PNG decodes to its size, the
     a trainer built as the CLI builds it (on the CLI's training rows, with a
     seed of its own: not the CLI's run, whose steps/s sit beside them).
 
+and for the paper's Morpho-MNIST comparison, the same way, on C1-C4's
+artifacts:
+
+M1. synthesis: ``create_train_dataset --synthetic 512 --scale 16`` and
+    ``create_test_dataset --synthetic 256`` with ``--workers`` at the host's
+    core count, and the test split once more with ``--noise-std 8`` into a
+    second directory: shapes and the 13-column layout, no glyph whose
+    maximum is 50 or less, the attribute columns equal to the port's
+    ``GroundTruthSCM`` draws for the seed, the noisy split's attributes
+    unchanged and its pixels not; glyphs/s and the core count;
+M2. the oracle: ``measure_batch`` and ``measure_attributes`` on M1's test
+    split with the native and the python engine (equal to 1e-9), the median
+    |measured - target| of thickness, intensity and slant under
+    ``ORACLE_BOUNDS``; images/s of each engine;
+M3. ``train_mnist_vae`` at full width, batch 64, 4 MC samples, ``kl_weight``
+    10, one 100-step epoch on C1's rows: a finite -ELBO, every parameter
+    changed, no ``fused_encoder`` launch (the trunk needs a gradient), the
+    checkpoint loads back; steps/s, and kernels a step and the idle share of
+    a VAE trainer built as the CLI builds it;
+M4. serving from C2's BiGAN, SCM and classifier and M3's VAE:
+    ``mnist_gan_measured_cf`` and ``mnist_vae_measured_cf`` on M1's test
+    split (``--limit 256``: three finite median errors, the PNG's size, one
+    ``fused_encoder`` launch for each intervened attribute),
+    ``mnist_vae_counterfactuals`` (``--limit 64``: both models' pixel MAE),
+    ``mnist_vae_score`` (``--limit 2048``, on C1's test rows) and
+    ``mnist_vae_generator_score`` (``--n 2048``: in [0, 1]), ``test_vae``
+    (``ok``), each CLI's launches read around it alone;
+M5. ``fused_encoder`` against its plain version at the measured-CF CLIs'
+    shape (256, 28, 28, 5), on M3's VAE trunk and on fan-in-scaled weights,
+    timed beside its plain version and the ``F.conv2d`` stack, with its
+    bound (a ``kernel_at_serving_shape`` line).
+
 The ``kernels`` line lists every kernel row (``launches``: the serving path's;
 ``train_launches`` over ``train_steps``: the training path's;
-``cli_launches``: each CLI run's); the last line of output is
-``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
+``cli_launches``: each CLI run's, C and M phases); the last line of output
+is ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
 name and power limit of the card.
 """
 from __future__ import annotations
@@ -690,22 +722,23 @@ def near_kink(what: str, a, b, total_gate: float = 1e-5) -> int:
     return flips
 
 
-def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev, peak, card):
+def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev, peak, card,
+                            key: str = "kernel_at_training_shape"):
     """The trunk kernel against its plain version at the shape a trainer's
-    recompute phase gives it (``plan_gemm`` picks tiles and splits from the
-    batch): on the trainer's own encoder weights and attribute channels, and
-    on fan-in-scaled weights and N(0, 1) features of that shape, whose O(1)
-    outputs make the float32 gate bite. Returns a line with the kernel's
-    times at that shape beside its plain version's, the ``F.conv2d``
-    stack's and the bound."""
+    recompute phase (or another caller, named by ``key``) gives it
+    (``plan_gemm`` picks tiles and splits from the batch): on the model's own
+    encoder weights and attribute channels, and on fan-in-scaled weights and
+    N(0, 1) features of that shape, whose O(1) outputs make the float32 gate
+    bite. Returns a line with the kernel's times at that shape beside its
+    plain version's, the ``F.conv2d`` stack's and the bound."""
     from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward, fused_encoder_reference, plan_conv_ops
 
     with torch.no_grad():
         feats = encoder.attr_channels(x, attrs)
         own = {n: p.detach() for n, p in encoder.trunk.named_parameters()}
-        err, _, _, _, plain = check_trunk(f"{name}, the trainer's weights", own, feats, plan, F32)
+        err, _, _, _, plain = check_trunk(f"{name}, the model's weights", own, feats, plan, F32)
         top = plain.abs().max().item()
-        print(f"fused_encoder {name}, the trainer's weights: max|plain| = {top:.3e}, "
+        print(f"fused_encoder {name}, the model's weights: max|plain| = {top:.3e}, "
               f"relative error {err / top:.3e} (printed, not gated)")
         rng = np.random.default_rng(seed)
         probe = torch.from_numpy(rng.normal(0, 1, tuple(feats.shape)).astype(np.float32)).to(dev)
@@ -720,7 +753,7 @@ def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev, 
         library_device = device_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=20)
     flops, nbytes = trunk_cost(tuple(tfeats.shape), pairs, conv_ops)
     t_ops, t_bytes = flops / peak[0][F32] * 1e3, nbytes / peak[1] * 1e3
-    return {"kernel_at_training_shape": "fused_encoder", "trunk": name, "shape": list(tfeats.shape),
+    return {key: "fused_encoder", "trunk": name, "shape": list(tfeats.shape),
             "dtype": "f32", "max_abs_err": err, "ms": kernel_ms, "device_ms": device,
             "plain_ms": plain_ms, "library_ms": library_ms, "library_device_ms": library_device,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1135,11 +1168,12 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def run_cli(name: str, dev, *argv):
-    """One CLI through its ``main`` on ``dev`` (``--device``), as a user runs
-    it, with both kernels' launch counts set to 0 just before and read just
-    after. Returns (seconds, what it printed, {kernel: launches}); a non-zero
-    exit fails."""
+def run_cli(name: str, dev, *argv, device_flag: bool = True, phase: str = "C"):
+    """One CLI through its ``main`` on ``dev`` (``--device``, unless
+    ``device_flag`` is false: the dataset CLIs touch no tensor), as a user
+    runs it, with both kernels' launch counts set to 0 just before and read
+    just after. Returns (seconds, what it printed, {kernel: launches}); a
+    non-zero exit fails."""
     import contextlib
     import importlib
     import io
@@ -1153,15 +1187,28 @@ def run_cli(name: str, dev, *argv):
     fused_encoder_forward.launches = fused_dense_lrelu.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        code = main([*map(str, argv), "--device", dev.type])
+        code = main([*map(str, argv), *(("--device", dev.type) if device_flag else ())])
     sync(dev)
     secs = time.perf_counter() - t0
     launches = {"fused_encoder": fused_encoder_forward.launches, "fused_dense": fused_dense_lrelu.launches}
     text = out.getvalue()
     print("".join(f"  {name}| {line}\n" for line in text.splitlines()), end="")
     check(code == 0, f"{name} exited with {code}")
-    print(f"C {name}: {secs:.2f} s; launches {launches}")
+    print(f"{phase} {name}: {secs:.2f} s; launches {launches}")
     return secs, text, launches
+
+
+def cli_runner(dev, launches, secs, phase: str):
+    """``cli(label, name, *argv, device_flag=True)``: :func:`run_cli` that
+    files the run's seconds under ``secs[label]`` and its launches under
+    ``launches[kernel][label]``."""
+    def cli(label, name, *argv, device_flag: bool = True):
+        t, text, counts = run_cli(name, dev, *argv, device_flag=device_flag, phase=phase)
+        secs[label] = t
+        for k, n in counts.items():
+            launches.setdefault(k, {})[label] = n
+        return text
+    return cli
 
 
 def steps_per_s(text: str):
@@ -1176,44 +1223,52 @@ def printed_score(text: str, what: str) -> float:
     return value
 
 
-def step_profile(data, mode_kw, bsz: int, seed: int, dev, steps: int = 6):
+def profile_steps(train_step, data, bsz: int, label: str, dev, steps: int = 6):
     """Kernels a step, device busy time a step and the idle share, under
-    torch.profiler after three warm-up steps, of a trainer built as the
-    training CLI builds it in one mode: full-width ``mnist_bigan_config()``,
-    ``--batch-size`` 64, ``--d-updates-per-g-update`` 3, on the CLI's
-    training rows. It is a trainer of its own (seed ``seed``), not the CLI's
-    run."""
+    torch.profiler after three warm-up steps, of ``train_step`` on
+    consecutive ``bsz``-row batches of ``data``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from imagecfgen_torch.models.bigan import BiGAN, mnist_bigan_config
-    from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
-
-    tr = GANTrainer(BiGAN(mnist_bigan_config(), dev, seeded(seed)),
-                    GANTrainConfig(batch_size=bsz, d_updates_per_g_update=3, **mode_kw), dev, seed=seed)
     batches = [{"image": data["image"][i * bsz:(i + 1) * bsz],
                 "attrs": {k: v[i * bsz:(i + 1) * bsz] for k, v in data["attrs"].items()}}
                for i in range(3 + steps)]
     for b in batches[:3]:
-        tr.train_step(b)
+        train_step(b)
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[3:]:
-            tr.train_step(b)
+            train_step(b)
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    return {"profiled": f"a trainer built as the CLI builds it, seed {seed}, {steps} steps",
+    return {"profiled": f"{label}, {steps} steps",
             "kernels_per_step": sum(e.count for e in device) / steps, "device_ms_per_step": busy_ms / steps,
             "profiled_ms_per_step": wall_ms / steps, "idle": 1 - busy_ms / wall_ms}
 
 
-def cli_phases(args, dev, card):
+def step_profile(data, mode_kw, bsz: int, seed: int, dev, steps: int = 6):
+    """:func:`profile_steps` of a GAN trainer built as the training CLI
+    builds it in one mode: full-width ``mnist_bigan_config()``,
+    ``--batch-size`` 64, ``--d-updates-per-g-update`` 3, on the CLI's
+    training rows. It is a trainer of its own (seed ``seed``), not the CLI's
+    run."""
+    from imagecfgen_torch.models.bigan import BiGAN, mnist_bigan_config
+    from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    tr = GANTrainer(BiGAN(mnist_bigan_config(), dev, seeded(seed)),
+                    GANTrainConfig(batch_size=bsz, d_updates_per_g_update=3, **mode_kw), dev, seed=seed)
+    return profile_steps(tr.train_step, data, bsz, f"a trainer built as the CLI builds it, seed {seed}",
+                         dev, steps)
+
+
+def cli_phases(args, dev, card, tmp: str):
     """Phases C1-C4: the port's MNIST CLIs end to end on a synthetic
-    Morpho-MNIST dataset, as a user runs them. Returns ({kernel: {CLI run:
-    launches}}, lines)."""
+    Morpho-MNIST dataset, as a user runs them, in ``tmp/data``,
+    ``tmp/models`` and ``tmp/fast``. Returns ({kernel: {CLI run: launches}},
+    lines)."""
     from imagecfgen_torch.cli.common import (
         load_attribute_scm,
         load_bigan,
@@ -1228,91 +1283,234 @@ def cli_phases(args, dev, card):
 
     launches, lines, secs = {"fused_encoder": {}, "fused_dense": {}}, [], {}
     bsz, steps = 64, CLI_TRAIN // 64
+    cli = cli_runner(dev, launches, secs, "C")
+    data, models, fast = (os.path.join(tmp, d) for d in ("data", "models", "fast"))
+    # --------------------------------------------------- C1. the dataset
+    t0 = time.perf_counter()
+    write_mnist_dataset(data, CLI_TRAIN, CLI_TEST, args.seed + 40)
+    secs["dataset"] = time.perf_counter() - t0
+    print(f"C1 dataset: {CLI_TRAIN} + {CLI_TEST} glyphs in {secs['dataset']:.2f} s")
 
-    def cli(label, name, *argv):
-        t, text, counts = run_cli(name, dev, *argv)
-        secs[label] = t
-        for k, n in counts.items():
-            launches[k][label] = n
-        return text
+    # ------------------------------------ C2. training at full width
+    cli("train_mnist_attribute_scm", "train_mnist_attribute_scm", "--data-dir", data,
+        "--output-path", models, "--steps", 100)
+    cli("train_mnist_clf", "train_mnist_clf", "--data-dir", data, "--output-path", models, "--epochs", 1)
+    gan = ("--data-dir", data, "--batch-size", bsz, "--d-updates-per-g-update", 3, "--save-images-every", 1)
+    ref = cli("train_mnist_image_scm", "train_mnist_image_scm", *gan, "--output-path", models,
+              "--steps", 1)
+    resumed = cli("train_mnist_image_scm --resume", "train_mnist_image_scm", *gan,
+                  "--output-path", models, "--steps", 2, "--resume")
+    thr = cli("train_mnist_image_scm --throughput", "train_mnist_image_scm", *gan,
+              "--output-path", fast, "--steps", 1, "--throughput")
+    cli("train_morphomnist_ae", "train_morphomnist_ae", "--data-dir", data, "--output-path", models,
+        "--epochs", 1)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data, models, fast = (os.path.join(tmp, d) for d in ("data", "models", "fast"))
-        # --------------------------------------------------- C1. the dataset
-        t0 = time.perf_counter()
-        write_mnist_dataset(data, CLI_TRAIN, CLI_TEST, args.seed + 40)
-        secs["dataset"] = time.perf_counter() - t0
-        print(f"C1 dataset: {CLI_TRAIN} + {CLI_TEST} glyphs in {secs['dataset']:.2f} s")
+    # -------------------------------- C3. serving from those artifacts
+    cf_png = os.path.join(tmp, "mnist-gan-counterfactuals.png")
+    cli("mnist_gan_counterfactuals", "mnist_gan_counterfactuals", "--data-dir", data,
+        "--model-dir", models, "--output", cf_png)
+    cf_acc = printed_score(cli("mnist_bigan_score", "mnist_bigan_score", "--data-dir", data,
+                               "--model-dir", models, "--limit", 2048, "--batch-size", 512),
+                           "cf digit accuracy")
+    gen_acc = printed_score(cli("mnist_generator_score", "mnist_generator_score", "--model-dir", models,
+                                "--n", 2048), "generated-sample digit accuracy")
 
-        # ------------------------------------ C2. training at full width
-        cli("train_mnist_attribute_scm", "train_mnist_attribute_scm", "--data-dir", data,
-            "--output-path", models, "--steps", 100)
-        cli("train_mnist_clf", "train_mnist_clf", "--data-dir", data, "--output-path", models, "--epochs", 1)
-        gan = ("--data-dir", data, "--batch-size", bsz, "--d-updates-per-g-update", 3, "--save-images-every", 1)
-        ref = cli("train_mnist_image_scm", "train_mnist_image_scm", *gan, "--output-path", models,
-                  "--steps", 1)
-        resumed = cli("train_mnist_image_scm --resume", "train_mnist_image_scm", *gan,
-                      "--output-path", models, "--steps", 2, "--resume")
-        thr = cli("train_mnist_image_scm --throughput", "train_mnist_image_scm", *gan,
-                  "--output-path", fast, "--steps", 1, "--throughput")
-        cli("train_morphomnist_ae", "train_morphomnist_ae", "--data-dir", data, "--output-path", models,
-            "--epochs", 1)
+    # ------------------------------------------ C4. checks and times
+    for f in ("mnist-bigan.tar", "mnist-attribute-scm.tar", "mnist_clf.tar", "ae-all.tar",
+              "attribute-scm-hists.png", "epoch-1.png", "epoch-2.png"):
+        check(os.path.exists(os.path.join(models, f)), f"C4: {f} was not written")
+    state, _, meta = load_bigan(os.path.join(models, "mnist-bigan.tar"), dev)
+    fstate, _, _ = load_bigan(os.path.join(fast, "mnist-bigan.tar"), dev)
+    check(f"at epoch 1 (step {steps})" in resumed, "C4: the resumed run did not start at its step")
+    check(meta["epoch"] == 2 and state["step"] == 2 * steps,
+          f"C4: the resumed run ended at epoch {meta['epoch']}, step {state['step']}")
+    check(state["opt_d"]["count"] == 2 * state["step"], "C4: reference mode's Adam D count")
+    check(fstate["step"] == steps and fstate["opt_d"]["count"] == fstate["step"],
+          f"C4: --throughput took {fstate['opt_d']['count']} D updates in {fstate['step']} steps")
+    check({m.dtype for m in fstate["opt_d"]["mu"].values()} == {torch.bfloat16},
+          "C4: --throughput keeps Adam's mu in float32")
+    x = torch.from_numpy(load_mnist_training_data(data, "test")[0][:8]).to(dev)
+    scm = load_attribute_scm(os.path.join(models, "mnist-attribute-scm.tar"), dev)
+    check(all(torch.isfinite(v.float()).all() for v in scm.sample(seeded(0), n=64, device=dev).values()),
+          "C4: the attribute SCM's samples")
+    with torch.no_grad():
+        logits = load_classifier(os.path.join(models, "mnist_clf.tar"), mnist_classifier_config(), dev)(x)
+        recon = load_classifier(os.path.join(models, "ae-all.tar"), AutoEncoderConfig(), dev)(x)
+    check(logits.shape == (8, 10) and bool(torch.isfinite(logits).all()), "C4: the classifier")
+    check(recon.shape == (8, 28, 28, 1) and bool(torch.isfinite(recon).all()), "C4: the autoencoder")
+    for path, shape in ((os.path.join(models, "attribute-scm-hists.png"), (3 * 48, 100)),
+                        (os.path.join(models, "epoch-2.png"), (3 * 28, 10 * 28)),
+                        (os.path.join(fast, "epoch-1.png"), (3 * 28, 10 * 28)), (cf_png, (3 * 28, 8 * 28))):
+        check(read_png(path).shape == shape, f"C4: {path} decodes to {read_png(path).shape}, not {shape}")
+    enc = launches["fused_encoder"]
+    for label in ("train_mnist_image_scm", "train_mnist_image_scm --resume",
+                  "train_mnist_image_scm --throughput"):  # once a step, once for the epoch's grid
+        check(enc[label] == steps + 1, f"C4: {label}: {enc[label]} fused_encoder launches in {steps} steps")
+    check(enc["mnist_gan_counterfactuals"] == 2, "C4: the counterfactual CLI's fused_encoder launches")
+    check(enc["mnist_bigan_score"] >= 1, "C4: the score CLI did not reach fused_encoder")
 
-        # -------------------------------- C3. serving from those artifacts
-        cf_png = os.path.join(tmp, "mnist-gan-counterfactuals.png")
-        cli("mnist_gan_counterfactuals", "mnist_gan_counterfactuals", "--data-dir", data,
-            "--model-dir", models, "--output", cf_png)
-        cf_acc = printed_score(cli("mnist_bigan_score", "mnist_bigan_score", "--data-dir", data,
-                                   "--model-dir", models, "--limit", 2048, "--batch-size", 512),
-                               "cf digit accuracy")
-        gen_acc = printed_score(cli("mnist_generator_score", "mnist_generator_score", "--model-dir", models,
-                                    "--n", 2048), "generated-sample digit accuracy")
-
-        # ------------------------------------------ C4. checks and times
-        for f in ("mnist-bigan.tar", "mnist-attribute-scm.tar", "mnist_clf.tar", "ae-all.tar",
-                  "attribute-scm-hists.png", "epoch-1.png", "epoch-2.png"):
-            check(os.path.exists(os.path.join(models, f)), f"C4: {f} was not written")
-        state, _, meta = load_bigan(os.path.join(models, "mnist-bigan.tar"), dev)
-        fstate, _, _ = load_bigan(os.path.join(fast, "mnist-bigan.tar"), dev)
-        check(f"at epoch 1 (step {steps})" in resumed, "C4: the resumed run did not start at its step")
-        check(meta["epoch"] == 2 and state["step"] == 2 * steps,
-              f"C4: the resumed run ended at epoch {meta['epoch']}, step {state['step']}")
-        check(state["opt_d"]["count"] == 2 * state["step"], "C4: reference mode's Adam D count")
-        check(fstate["step"] == steps and fstate["opt_d"]["count"] == fstate["step"],
-              f"C4: --throughput took {fstate['opt_d']['count']} D updates in {fstate['step']} steps")
-        check({m.dtype for m in fstate["opt_d"]["mu"].values()} == {torch.bfloat16},
-              "C4: --throughput keeps Adam's mu in float32")
-        x = torch.from_numpy(load_mnist_training_data(data, "test")[0][:8]).to(dev)
-        scm = load_attribute_scm(os.path.join(models, "mnist-attribute-scm.tar"), dev)
-        check(all(torch.isfinite(v.float()).all() for v in scm.sample(seeded(0), n=64, device=dev).values()),
-              "C4: the attribute SCM's samples")
-        with torch.no_grad():
-            logits = load_classifier(os.path.join(models, "mnist_clf.tar"), mnist_classifier_config(), dev)(x)
-            recon = load_classifier(os.path.join(models, "ae-all.tar"), AutoEncoderConfig(), dev)(x)
-        check(logits.shape == (8, 10) and bool(torch.isfinite(logits).all()), "C4: the classifier")
-        check(recon.shape == (8, 28, 28, 1) and bool(torch.isfinite(recon).all()), "C4: the autoencoder")
-        for path, shape in ((os.path.join(models, "attribute-scm-hists.png"), (3 * 48, 100)),
-                            (os.path.join(models, "epoch-2.png"), (3 * 28, 10 * 28)),
-                            (os.path.join(fast, "epoch-1.png"), (3 * 28, 10 * 28)), (cf_png, (3 * 28, 8 * 28))):
-            check(read_png(path).shape == shape, f"C4: {path} decodes to {read_png(path).shape}, not {shape}")
-        enc = launches["fused_encoder"]
-        for label in ("train_mnist_image_scm", "train_mnist_image_scm --resume",
-                      "train_mnist_image_scm --throughput"):  # once a step, once for the epoch's grid
-            check(enc[label] == steps + 1, f"C4: {label}: {enc[label]} fused_encoder launches in {steps} steps")
-        check(enc["mnist_gan_counterfactuals"] == 2, "C4: the counterfactual CLI's fused_encoder launches")
-        check(enc["mnist_bigan_score"] >= 1, "C4: the score CLI did not reach fused_encoder")
-
-        x_np, attrs, scaler = load_mnist_training_data(data)
-        rows = {"image": torch.from_numpy(x_np[:9 * bsz]).to(dev),
-                "attrs": {k: torch.from_numpy(v[:9 * bsz]).to(dev) for k, v in scale_attrs(scaler, attrs).items()}}
-        for mode, flags in {"reference": [], "throughput": ["--throughput"]}.items():
-            prof = step_profile(rows, throughput_kw(gan_parser.parse_args(flags)), bsz, args.seed + 41, dev)
-            rates = steps_per_s(ref + resumed if mode == "reference" else thr)
-            lines.append({"cli_training": f"train_mnist_image_scm {' '.join(flags)}".strip(), "batch": bsz,
-                          "d_updates_per_g_update": 3, "steps_per_epoch": steps, "cli_steps_per_s": rates,
-                          "profile_of_a_like_trainer": prof, "card": card})
+    x_np, attrs, scaler = load_mnist_training_data(data)
+    rows = {"image": torch.from_numpy(x_np[:9 * bsz]).to(dev),
+            "attrs": {k: torch.from_numpy(v[:9 * bsz]).to(dev) for k, v in scale_attrs(scaler, attrs).items()}}
+    for mode, flags in {"reference": [], "throughput": ["--throughput"]}.items():
+        prof = step_profile(rows, throughput_kw(gan_parser.parse_args(flags)), bsz, args.seed + 41, dev)
+        rates = steps_per_s(ref + resumed if mode == "reference" else thr)
+        lines.append({"cli_training": f"train_mnist_image_scm {' '.join(flags)}".strip(), "batch": bsz,
+                      "d_updates_per_g_update": 3, "steps_per_epoch": steps, "cli_steps_per_s": rates,
+                      "profile_of_a_like_trainer": prof, "card": card})
     lines.append({"cli_seconds": secs, "cf_digit_accuracy": cf_acc,
                   "generated_sample_digit_accuracy": gen_acc, "card": card})
+    return launches, lines
+
+
+# M2: median |measured - target| of M1's test split may not exceed these. In
+# a CPU rehearsal the 256 glyphs of that split read 0.0869, 0.0 and 0.00182
+# (the oracle's own error: perturbation, downscaling and re-measurement).
+ORACLE_BOUNDS = {"thickness": 0.2, "intensity": 0.01, "slant": 0.01}
+M_TRAIN, M_TEST = 512, 256  # glyphs synthesised by M1 (at --scale 16, as the reference)
+PANEL = 96  # the measured-CF panels' size (cli/common.py::scatter_panel)
+
+
+def printed_errors(text: str, attributes) -> dict:
+    """The ``median abs errors: {...}`` a measured-CF CLI printed, each
+    finite."""
+    m = re.search(r"median abs errors: \{(.*)\}", text)
+    check(m is not None, "no median abs errors printed")
+    errors = {k: float(v) for k, v in re.findall(r"'(\w+)': ([^,]+)", m.group(1))}
+    check(set(errors) == set(attributes), f"errors for {sorted(errors)}, not {sorted(attributes)}")
+    check(all(np.isfinite(v) for v in errors.values()), f"non-finite errors {errors}")
+    return errors
+
+
+def morpho_phases(args, dev, card, peak, tmp: str):
+    """Phases M1-M5: the paper's Morpho-MNIST comparison through the port's
+    CLIs, after C1-C4 and on their artifacts in ``tmp``. Returns ({kernel:
+    {CLI run: launches}}, lines)."""
+    from imagecfgen_torch.cli.common import load_mnist_training_data, load_vae, read_png, scale_attrs
+    from imagecfgen_torch.data.morphomnist_synth import GroundTruthSCM
+    from imagecfgen_torch.metrics.measured import measure_attributes
+    from imagecfgen_torch.models.vae import ConditionalVAE, mnist_vae_config
+    from imagecfgen_torch.morphomnist.measure import as_array, measure_batch
+    from imagecfgen_torch.train.vae_trainer import VAETrainConfig, VAETrainer
+
+    launches, lines, secs = {"fused_encoder": {}, "fused_dense": {}}, [], {}
+    cli = cli_runner(dev, launches, secs, "M")
+    data, models = os.path.join(tmp, "data"), os.path.join(tmp, "models")  # C1's rows, C2's models
+    mdata, noisy = os.path.join(tmp, "morpho"), os.path.join(tmp, "morpho-noisy")
+    cores = os.cpu_count() or 1
+    seeds = {"train": args.seed + 50, "test": args.seed + 51}
+
+    # ------------------------------------------------- M1. synthesis
+    cli("create_train_dataset", "create_train_dataset", "--synthetic", M_TRAIN, "--scale", 16,
+        "--workers", cores, "--seed", seeds["train"], "--out-dir", mdata, device_flag=False)
+    cli("create_test_dataset", "create_test_dataset", "--synthetic", M_TEST, "--workers", cores,
+        "--seed", seeds["test"], "--out-dir", mdata, device_flag=False)
+    cli("create_test_dataset --noise-std 8", "create_test_dataset", "--synthetic", M_TEST,
+        "--workers", cores, "--seed", seeds["test"], "--noise-std", 8, "--out-dir", noisy, device_flag=False)
+    split = {}
+    for name, n in (("train", M_TRAIN), ("test", M_TEST)):
+        x = np.load(os.path.join(mdata, f"mnist-x-{name}.npy"))
+        a = np.load(os.path.join(mdata, f"mnist-a-{name}.npy"))
+        check(x.shape == (n, 28, 28) and a.shape == (n, 13), f"M1: {name} split {x.shape}, {a.shape}")
+        check(bool((x.max(axis=(1, 2)) > 50).all()), f"M1: a blank glyph in the {name} split")
+        check(np.array_equal(a[:, :10].sum(axis=1), np.ones(n, np.float32)), f"M1: {name} digits not one-hot")
+        t, i, s = GroundTruthSCM(np.random.default_rng(seeds[name])).sample(n)
+        check(np.array_equal(a[:, 10:], np.concatenate([t, i, s], axis=1)),
+              f"M1: the {name} split's attributes are not the ground-truth SCM's draws")
+        split[name] = (x, a)
+    xn, an = np.load(os.path.join(noisy, "mnist-x-test.npy")), np.load(os.path.join(noisy, "mnist-a-test.npy"))
+    check(np.array_equal(an, split["test"][1]), "M1: --noise-std changed the attributes")
+    check(not np.array_equal(xn, split["test"][0]) and xn.min() >= 0 and xn.max() <= 255,
+          "M1: --noise-std left the pixels as they were, or outside [0, 255]")
+    synth = {"cpu_count": cores, "glyphs_per_s": {
+        label: n / secs[label] for label, n in (("create_train_dataset", M_TRAIN), ("create_test_dataset", M_TEST),
+                                                ("create_test_dataset --noise-std 8", M_TEST))}}
+    print(f"M1 synthesis: {synth}")
+
+    # -------------------------------------------------- M2. the oracle
+    x, a = split["test"]
+    oracle = {}
+    for engine in ("native", "python"):
+        t0 = time.perf_counter()
+        table = measure_batch(x, engine=engine)
+        t1 = time.perf_counter()
+        measured = measure_attributes(x, engine=engine)
+        oracle[engine] = (as_array(table), measured, len(x) / (t1 - t0))
+    for k, what in enumerate(("measure_batch", "measure_attributes")):
+        diff = np.abs(oracle["native"][k] - oracle["python"][k]).max()
+        print(f"M2 {what}: max|native - python| = {diff:.3e}")
+        check(diff <= 1e-9, f"M2: the engines' {what} differ by {diff}")
+    measured = oracle["native"][1]
+    errors = {name: float(np.median(np.abs(measured[:, k] - a[:, 10 + k])))
+              for k, name in enumerate(("thickness", "intensity", "slant"))}
+    print(f"M2 oracle: median |measured - target| {errors}, images/s "
+          f"{ {e: round(v[2], 1) for e, v in oracle.items()} }")
+    for name, err in errors.items():
+        check(err <= ORACLE_BOUNDS[name], f"M2: median |measured - target| of {name} {err} > {ORACLE_BOUNDS[name]}")
+    lines.append({"oracle": f"measure_batch on M1's test split ({len(x)} glyphs)", "median_abs_errors": errors,
+                  "bounds": ORACLE_BOUNDS, "images_per_s": {e: v[2] for e, v in oracle.items()},
+                  "synthesis": synth, "card": card})
+
+    # -------------------------------------------------- M3. the VAE's training
+    bsz = 64
+    text = cli("train_mnist_vae", "train_mnist_vae", "--data-dir", data, "--output-path", models, "--steps", 1,
+               "--batch-size", bsz)
+    m = re.search(r"-elbo=(\S+) ", text)
+    check(m is not None and np.isfinite(float(m.group(1))), "M3: no finite -ELBO printed")
+    check(launches["fused_encoder"]["train_mnist_vae"] == 0,
+          "M3: VAE training reached fused_encoder (its trunk needs a gradient)")
+    cfg = mnist_vae_config()
+    vae, scaler, meta = load_vae(os.path.join(models, "mnist-vae.tar"), cfg, dev)
+    check(meta["epoch"] == 1, f"M3: checkpoint meta {meta}")
+    init = dict(ConditionalVAE(cfg, dev, seeded(0)).named_parameters())  # the CLI's --seed 0 init
+    still = [n for n, p in vae.named_parameters() if torch.equal(p, init[n])]
+    check(not still, f"M3: {still} did not change in one epoch")
+    x_np, attrs, _ = load_mnist_training_data(data)
+    rows = {"image": torch.from_numpy(x_np[:9 * bsz]).to(dev),
+            "attrs": {k: torch.from_numpy(v[:9 * bsz]).to(dev) for k, v in scale_attrs(scaler, attrs).items()}}
+    vtr = VAETrainer(ConditionalVAE(cfg, dev, seeded(args.seed + 52)), VAETrainConfig(batch_size=bsz), dev,
+                     seed=args.seed + 53)
+    prof = profile_steps(vtr.train_step, rows, bsz, f"a VAE trainer built as the CLI builds it, seed "
+                         f"{args.seed + 52}", dev)
+    lines.append({"cli_training": "train_mnist_vae", "batch": bsz, "num_samples_per_step": 4, "kl_weight": 10.0,
+                  "steps_per_epoch": CLI_TRAIN // bsz, "cli_steps_per_s": steps_per_s(text),
+                  "neg_elbo": float(m.group(1)), "profile_of_a_like_trainer": prof, "card": card})
+
+    # ----------------------------------------- M4. measured counterfactuals
+    measured_cf = {}
+    for label, name in (("bigan", "mnist_gan_measured_cf"), ("vae", "mnist_vae_measured_cf")):
+        png = os.path.join(tmp, f"{name}.png")
+        text = cli(name, name, "--data-dir", mdata, "--model-dir", models, "--limit", M_TEST, "--workers", cores,
+                   "--output", png)
+        measured_cf[label] = printed_errors(text, ("thickness", "intensity", "slant"))
+        check(read_png(png).shape == (PANEL, 3 * PANEL), f"M4: {png} decodes to {read_png(png).shape}")
+        check(launches["fused_encoder"][name] == 3, f"M4: {name}: {launches['fused_encoder'][name]} "
+              "fused_encoder launches, not one for each attribute")
+    text = cli("mnist_vae_counterfactuals", "mnist_vae_counterfactuals", "--data-dir", mdata, "--model-dir", models,
+               "--limit", 64, "--workers", cores)
+    mae = {k: float(v) for k, v in re.findall(r"(bigan|vae): pixel MAE vs ground-truth \S+ = ([0-9.]+)", text)}
+    check(set(mae) == {"bigan", "vae"} and all(np.isfinite(v) for v in mae.values()), f"M4: pixel MAE {mae}")
+    check(launches["fused_encoder"]["mnist_vae_counterfactuals"] == 2,
+          "M4: mnist_vae_counterfactuals did not encode once with each model")
+    # the scores on C1's 2,048 test rows, as C3 scores the BiGAN
+    cf_acc = printed_score(cli("mnist_vae_score", "mnist_vae_score", "--data-dir", data, "--model-dir", models,
+                               "--limit", 2048, "--batch-size", 512), "vae cf digit accuracy")
+    check(launches["fused_encoder"]["mnist_vae_score"] == -(-min(2048, CLI_TEST) // 512),
+          "M4: mnist_vae_score: not one fused_encoder launch a batch")
+    gen_acc = printed_score(cli("mnist_vae_generator_score", "mnist_vae_generator_score", "--model-dir", models,
+                                "--n", 2048), "vae generated-sample digit accuracy")
+    check("\nok" in "\n" + cli("test_vae", "test_vae"), "M4: test_vae did not print ok")
+    check(launches["fused_encoder"]["test_vae"] == 2, "M4: test_vae's encoder calls missed the kernel")
+    lines.append({"measured_cf": measured_cf, "limit": M_TEST, "pixel_mae_do_thickness_plus_2": mae,
+                  "vae_cf_digit_accuracy": cf_acc, "vae_generated_sample_digit_accuracy": gen_acc,
+                  "cli_seconds": secs, "card": card})
+
+    # ------------------------------------ M5. the kernel at the new shape
+    xt, at, _ = load_mnist_training_data(mdata, "test")
+    xt = torch.from_numpy(xt[:M_TEST]).to(dev)
+    at = scaler.scale({k: torch.from_numpy(v[:M_TEST]).to(dev) for k, v in at.items()})
+    lines.append(trunk_at_training_shape(f"MNIST VAE trunk at batch {M_TEST}", vae.encoder, xt, at, cfg.enc_plan,
+                                         args.seed + 54, dev, peak, card, key="kernel_at_serving_shape"))
     return launches, lines
 
 
@@ -1470,8 +1668,13 @@ def main(argv=None) -> int:
         check(count is None or count > 0, f"the training path did not reach the {kernel['name']} kernel")
         kernel.update(train_launches=count, train_steps=steps)
 
-    # ---------------------------------------------- C1-C4. the MNIST CLIs
-    cli_launches, cli_lines = cli_phases(args, dev, card)
+    # ----------------------- C1-C4, M1-M5. the MNIST CLIs and the comparison
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
+        m_launches, m_lines = morpho_phases(args, dev, card, peak, tmp)
+    for k, runs in m_launches.items():
+        cli_launches[k].update(runs)
+    cli_lines += m_lines
     for kernel in kernels:  # the CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)

@@ -2,14 +2,15 @@
 of ``imagecfgen_tpu/cli/common.py``).
 
 Artifacts keep the JAX package's names (``mnist-bigan.tar``,
-``mnist-attribute-scm.tar``, ``mnist_clf.tar``, ``ae-{cls}.tar``). The port
+``mnist-attribute-scm.tar``, ``mnist_clf.tar``, ``ae-{cls}.tar``,
+``mnist-vae.tar``). The port
 writes its own files (magic ``ICFP``, ``core.checkpoint.save_train_state``)
 and reads both kinds, told apart by their magic, never by their name: a
 model directory that the JAX CLIs wrote (magic ``ICFT``) is carried across
 by ``core.convert`` and can be scored, or resumed, here.
 
-Image grids are 8-bit grayscale PNGs written with ``zlib`` and ``struct``
-(the machine with the card has no matplotlib).
+Image grids and scatter panels are 8-bit grayscale PNGs written with
+``zlib`` and ``struct`` (the machine with the card has no matplotlib).
 """
 from __future__ import annotations
 
@@ -29,11 +30,13 @@ from ..core.convert import (
     classifier_params_from_jax,
     gan_state_from_jax,
     scm_from_jax_state_dict,
+    vae_params_from_jax,
 )
 from ..data.mnist import load_mnist_arrays
 from ..device import DeviceLike
 from ..models.bigan import BiGAN, BiGANConfig
 from ..models.classifier import AutoEncoderConfig, ClassifierConfig, CNNClassifier, ConvAutoEncoder
+from ..models.vae import ConditionalVAE
 from ..scm.mnist import MNISTAttributeSCM
 
 # ------------------------------------------------------------------ data
@@ -70,12 +73,20 @@ def has_test_split(data_dir: str) -> bool:
 # ------------------------------------------------------------------ BiGAN
 
 
+def _scaler_tensors(scaler: AttributeScaler) -> Dict:
+    """The scaler's state as tensors: the port's files are read back with
+    ``weights_only=True``."""
+    return {part: {k: torch.as_tensor(v) for k, v in stats.items()}
+            for part, stats in scaler.state_dict().items()}
+
+
+def _scaler_arrays(stats: Mapping) -> Dict:
+    return {part: {k: v.cpu().numpy() for k, v in d.items()} for part, d in stats.items()}
+
+
 def save_bigan(path: str, state: Mapping, scaler: AttributeScaler, meta: Optional[Dict] = None):
-    """A ``GANTrainer.state_dict()`` and the scaler (as tensors: the port's
-    files are read back with ``weights_only=True``)."""
-    scaler_t = {part: {k: torch.as_tensor(v) for k, v in stats.items()}
-                for part, stats in scaler.state_dict().items()}
-    save_train_state(path, {"trainer": dict(state), "scaler": scaler_t},
+    """A ``GANTrainer.state_dict()`` and the scaler."""
+    save_train_state(path, {"trainer": dict(state), "scaler": _scaler_tensors(scaler)},
                      meta={"kind": "bigan", "carries_rng": state.get("rng") is not None, **(meta or {})})
 
 
@@ -85,7 +96,7 @@ def load_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, AttributeSca
     if checkpoint_format(path) == "torch":
         payload, meta = load_train_state(path, device)
         state = payload["trainer"]
-        stats = {part: {k: v.cpu().numpy() for k, v in d.items()} for part, d in payload["scaler"].items()}
+        stats = _scaler_arrays(payload["scaler"])
     else:
         tree, meta = load_checkpoint(path)
         state, stats = gan_state_from_jax(tree), tree["scaler"]
@@ -106,6 +117,31 @@ def bigan_from_state(state: Mapping, cfg: BiGANConfig, device: DeviceLike = None
     model.generator.load_state_dict(state["G"])
     model.discriminator.load_state_dict(state["D"])
     return model
+
+
+# ------------------------------------------------------------------ VAE
+
+
+def save_vae(path: str, state: Mapping, scaler: AttributeScaler, meta: Optional[Dict] = None):
+    """A ``VAETrainer.state_dict()`` and the scaler."""
+    save_train_state(path, {"trainer": dict(state), "scaler": _scaler_tensors(scaler)},
+                     meta={"kind": "vae-mnist", **(meta or {})})
+
+
+def load_vae(path: str, cfg: BiGANConfig, device: DeviceLike = None
+             ) -> Tuple[ConditionalVAE, AttributeScaler, Dict]:
+    """``(the VAE for cfg in eval mode, scaler, meta)`` of either kind of
+    file: the port's (:func:`save_vae`) or the JAX package's (its
+    ``{"params": {"encoder", "decoder"}, "scaler"}`` tree)."""
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        model = ConditionalVAE(cfg, device)
+        model.load_state_dict(payload["trainer"]["module"])
+        stats = _scaler_arrays(payload["scaler"])
+    else:
+        tree, meta = load_checkpoint(path)
+        model, stats = vae_params_from_jax(tree["params"], cfg, device), tree["scaler"]
+    return model.eval(), AttributeScaler.from_state_dict(MNIST_SPEC, stats), meta
 
 
 # ------------------------------------------------------------------ SCM
@@ -176,6 +212,29 @@ def save_grid_png(path: str, rows: Sequence, row_labels: Sequence[str], title: s
     for r, label in enumerate(row_labels):
         print(f"  row {r + 1}: {label}")
     return pix
+
+
+def scatter_panel(x, y, size: int = 96) -> np.ndarray:
+    """Points ``(x[k], y[k])`` and the line y = x as a ``size`` x ``size``
+    image in [0, 1] (the line at 0.5, each point a 3x3 mark at 1), both axes
+    over the finite values' common range, y up."""
+    x, y = np.asarray(x, np.float64).reshape(-1), np.asarray(y, np.float64).reshape(-1)
+    ok = np.isfinite(x) & np.isfinite(y)
+    vals = np.concatenate([x[ok], y[ok]])
+    lo, hi = (float(vals.min()), float(vals.max())) if vals.size else (0.0, 1.0)
+    span = hi - lo if hi > lo else 1.0
+    img = np.zeros((size, size), np.float32)
+    diag = np.arange(size)
+    img[size - 1 - diag, diag] = 0.5
+
+    def pix(v):
+        return np.clip(np.round((v - lo) / span * (size - 1)).astype(int), 0, size - 1)
+
+    cols, rows = pix(x[ok]), size - 1 - pix(y[ok])
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            img[np.clip(rows + dr, 0, size - 1), np.clip(cols + dc, 0, size - 1)] = 1.0
+    return img
 
 
 def read_png(path: str) -> np.ndarray:

@@ -13,6 +13,9 @@ flax. Layout changes:
 - ``attr_channels/embed_<name>/embedding`` and ``attr_vectors/embed_<name>``
   -> the tables of the same names;
 - ``bn_i`` scale/bias (params) and mean/var (batch stats) -> ``bn_i``;
+- a conditional VAE's ``{"encoder", "decoder"}`` params
+  (``vae_params_from_jax``): the encoder's trunk, attribute channels and
+  1x1 ``mean_head`` / ``log_var_head``, the decoder as a generator;
 - a whole ``GANState`` (``gan_state_from_jax``): the three modules, the step
   and both Adam states, each moment through the layout map of the parameter
   it belongs to, into ``train.gan_trainer.GANTrainer``'s ``state_dict()``
@@ -42,6 +45,7 @@ from ..models.classifier import (
     CNNClassifier,
     ConvAutoEncoder,
 )
+from ..models.vae import ConditionalVAE
 from ..ops.conv import kernel_from_hwio, kernel_transpose_from_hwio
 from ..scm.audio_mnist import AudioMNISTAttributeSCM
 from ..scm.mnist import MNISTAttributeSCM
@@ -181,6 +185,25 @@ def bigan_params_from_jax(
     model = BiGAN(cfg, device)
     model.encoder.load_state_dict(encoder_state_dict_from_jax(params_E))
     model.generator.load_state_dict(generator_state_dict_from_jax(params_G))
+    return model
+
+
+def vae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``ConditionalVAE``'s ``{"encoder", "decoder"}`` params -> the
+    port's ``ConditionalVAE`` state dict."""
+    enc = params["encoder"]
+    sd = {f"encoder.{k}": v for k, v in encoder_state_dict_from_jax(enc).items()}
+    for head in ("mean_head", "log_var_head"):
+        sd.update({f"encoder.{head}.{k}": v for k, v in plan_state_dict_from_jax(enc[head]).items()})
+    sd.update({f"decoder.{k}": v for k, v in generator_state_dict_from_jax(params["decoder"]).items()})
+    return sd
+
+
+def vae_params_from_jax(params: Mapping, cfg: BiGANConfig, device: DeviceLike = None) -> ConditionalVAE:
+    """A port ``ConditionalVAE`` for ``cfg`` holding the JAX VAE's params
+    (the ``params`` tree that ``train_mnist_vae.py`` saves)."""
+    model = ConditionalVAE(cfg, device)
+    model.load_state_dict(vae_state_dict_from_jax(params))
     return model
 
 

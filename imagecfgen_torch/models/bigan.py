@@ -54,6 +54,11 @@ class BiGANConfig:
     # "spatial": attribute vector becomes 1x1 channels next to z (MNIST style)
     # "dense":   z ++ attrs flattened into the plan's dense stem (audio style)
     gen_input: str = "spatial"
+    # appended to enc_plan when the config backs a VAE encoder trunk: the
+    # reference's MNIST/audio VAE encoders end with LeakyReLU before the
+    # mean / log-var heads (deepscm_vae/mnist.py:40, audio_mnist.py:207)
+    # but the whale VAE's does not (deepscm_vae/whalecalls.py:249-263)
+    vae_trunk_tail: Plan = (("lrelu", 0.2),)
 
 
 class Encoder(nn.Module):

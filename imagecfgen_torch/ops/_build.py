@@ -1,10 +1,14 @@
-"""Build the port's CUDA sources at first use and load them with ``ctypes``.
+"""Build the port's native sources at first use and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface, so it is compiled by
 ``nvcc`` alone (no PyTorch headers) into ``build/<name>-<hash>.so`` at the
 repository root, a git-ignored directory. The hash covers the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 The ``csrc/*.cuh`` headers the sources share are part of every hash.
+
+The host-side C++ of the morphometry oracle (``csrc/<name>.cpp``) is built
+the same way by the host compiler (``$CXX``, else ``g++``):
+:func:`load_host_library`. A build that fails raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ``name -> (seconds, nvcc output)`` of the builds made by this process
@@ -80,3 +86,31 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         load_libraries(name)
     return _LIBS[name]
+
+
+def _host_target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` with the host compiler (``$CXX``, else
+    ``g++``) if its build is missing, then load it. A failed build raises."""
+    key = f"host:{name}"
+    if key not in _LIBS:
+        out = _host_target(name)
+        if not out.exists():
+            cxx = os.environ.get("CXX", "g++")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            try:
+                proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cpp")],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            except OSError as e:
+                raise RuntimeError(f"{cxx} could not be run to build {name}.cpp: {e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed for {name}.cpp:\n{proc.stdout}")
+            os.replace(tmp, out)
+        _LIBS[key] = ctypes.CDLL(str(out))
+    return _LIBS[key]

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``imagecfgen_torch``, and not
 ``chip_smoke.py``, imports JAX, flax, optax, msgpack or the JAX package, nor
-matplotlib or PIL (the machine with the card has neither); and its entry
-points run on the card unless asked for the CPU."""
+matplotlib, PIL, pandas or tqdm (the machine with the card has none of
+them); and its entry points run on the card unless asked for the CPU."""
 import ast
 import subprocess
 import sys
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "imagecfgen_tpu", "matplotlib", "PIL")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "imagecfgen_tpu", "matplotlib", "PIL",
+          "pandas", "tqdm")
 SOURCES = sorted((REPO / "imagecfgen_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -50,6 +51,25 @@ def test_sources_cover_the_cli_slice():
     assert {f"imagecfgen_torch/cli/{m}.py" for m in ("common", *clis)} <= names
     assert {"imagecfgen_torch/data/mnist.py", "imagecfgen_torch/data/synthetic_digits.py",
             "imagecfgen_torch/morphomnist/io.py"} <= names
+
+
+def test_sources_cover_the_morpho_mnist_slice():
+    """Pin that the glob reaches the Morpho-MNIST oracle, synthesis and
+    measurement, the VAE and its trainer, and the nine CLIs of that slice,
+    and that the oracle's C++ sources are the port's own."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    morpho = ("__init__", "_skeletonize", "engine", "io", "measure", "morpho", "perturb", "skeleton")
+    clis = ("create_train_dataset", "create_test_dataset", "mnist_gan_measured_cf", "train_mnist_vae",
+            "mnist_vae_measured_cf", "mnist_vae_counterfactuals", "mnist_vae_score",
+            "mnist_vae_generator_score", "test_vae")
+    assert {f"imagecfgen_torch/morphomnist/{m}.py" for m in morpho} <= names
+    assert {f"imagecfgen_torch/cli/{m}.py" for m in clis} <= names
+    assert {"imagecfgen_torch/data/morphomnist_synth.py", "imagecfgen_torch/metrics/measured.py",
+            "imagecfgen_torch/models/vae.py", "imagecfgen_torch/train/vae_trainer.py"} <= names
+    for name in ("morphometry", "skeletonize"):
+        assert (REPO / "imagecfgen_torch" / "csrc" / f"{name}.cpp").is_file()
+    for path in (REPO / "imagecfgen_torch" / "morphomnist").glob("*.py"):
+        assert "native/" not in path.read_text(), path.name  # the JAX package's libraries
 
 
 def test_port_imports_with_jax_blocked():
@@ -111,6 +131,21 @@ def test_builders_without_device_raise_when_no_gpu(monkeypatch, builder):
             MNISTAttributeSCM.from_state_dict(MNISTAttributeSCM(graph, p, s).state_dict())
         else:
             getattr(bigan, builder)(bigan.mnist_bigan_config(64))
+
+
+@pytest.mark.parametrize("entry", ["ConditionalVAE", "VAETrainer"])
+def test_vae_without_device_raises_when_no_gpu(monkeypatch, entry):
+    from imagecfgen_torch.models.vae import ConditionalVAE, mnist_vae_config
+    from imagecfgen_torch.train.vae_trainer import VAETrainConfig, VAETrainer
+
+    cfg = mnist_vae_config(64)
+    model = ConditionalVAE(cfg, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "ConditionalVAE":
+            ConditionalVAE(cfg)
+        else:
+            VAETrainer(model, VAETrainConfig())
 
 
 @pytest.mark.parametrize("entry", ["CNNClassifier", "audio_BiGAN", "audio_scm", "generator_score"])
