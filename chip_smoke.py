@@ -139,9 +139,42 @@ M5. ``fused_encoder`` against its plain version at the measured-CF CLIs'
     timed beside its plain version and the ``F.conv2d`` stack, with its
     bound (a ``kernel_at_serving_shape`` line).
 
+and for the paper's counterfactual explainers, on the same artifacts (every
+model at full width; the CLIs that write into the working directory run in
+a directory of their own):
+
+X1. ``fused_encoder`` against its plain version at the explainers' shape
+    (1, 28, 28, 5): every explainer encodes one image. On C2's BiGAN trunk
+    and M3's VAE trunk (their own weights and attribute channels) and on
+    fan-in-scaled weights, launch plans printed, timed beside its plain
+    version and the ``F.conv2d`` stack, with its bound (a
+    ``kernel_at_explainer_shape`` line for each trunk);
+X2. ``train_morphomnist_oracles`` (``--epochs 1``), per-digit autoencoders
+    (``train_morphomnist_ae --cls 0..9``, one epoch each, for the realism
+    columns), then ``mnist_cf_explain`` (``--steps 20``),
+    ``mnist_cf_comparisons`` (``--n-images 8 --steps 20``),
+    ``make_mnist_cf_matrix`` (``--per-digit 1``) and ``show_cf_matrix``,
+    ``mnist_oracle_scores`` and ``morphomnist_cf_metrics`` (``--limit 8
+    --steps 20``; the latter with the VAE's explainers),
+    ``morphomnist_attribute_shap`` (``--limit 2``): their artifacts (PNG
+    sizes, the pickle's keys, the CSVs' rows and columns, the SHAP arrays'
+    shape), and each CLI's ``fused_encoder`` launches equal to its ``explain``
+    calls (0 where it encodes nothing); then the pixel baselines on the card
+    as those CLIs run them: ``ok`` masks that agree with the labels, every
+    image in [-1, 1], pertinent positives inside x (an ``explainers`` line);
+X3. ``finetune_mnist_bigan`` for one epoch with ``--metric mse`` and
+    ``ssim``: 0 ``fused_encoder`` launches (E needs a gradient), every
+    tensor of E moved, G and D bit for bit unchanged, the written file loads
+    into ``CounterfactualEngine`` and reconstructs; ``mnist_reconstructions``
+    renders the three files (3 launches); steps/s, and kernels a step and the
+    idle share of a fine-tuner built as the CLI builds it
+    (``{"cli_training": "finetune_mnist_bigan ..."}`` lines).
+
 The ``kernels`` line lists every kernel row (``launches``: the serving path's;
 ``train_launches`` over ``train_steps``: the training path's;
-``cli_launches``: each CLI run's, C and M phases); the last line of output
+``cli_launches``: each CLI run's, C, M and X phases; the ``fused_encoder:b1``
+row is the explainer path's, (1, 28, 28, 5), its ``launches`` the explainer
+CLIs'); the last line of output
 is ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
 name and power limit of the card.
 """
@@ -1223,30 +1256,38 @@ def printed_score(text: str, what: str) -> float:
     return value
 
 
-def profile_steps(train_step, data, bsz: int, label: str, dev, steps: int = 6):
-    """Kernels a step, device busy time a step and the idle share, under
-    torch.profiler after three warm-up steps, of ``train_step`` on
-    consecutive ``bsz``-row batches of ``data``."""
+def profile_call(fn, per: int, label: str, dev):
+    """Kernels, device busy time and the idle share of one call of ``fn``
+    under torch.profiler, each a ``per``-th of the call's (its steps)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    return {"profiled": label, "kernels_per_step": sum(e.count for e in device) / per,
+            "device_ms_per_step": busy_ms / per, "profiled_ms_per_step": wall_ms / per, "idle": 1 - busy_ms / wall_ms}
+
+
+def profile_steps(train_step, data, bsz: int, label: str, dev, steps: int = 6):
+    """:func:`profile_call` of ``steps`` calls of ``train_step`` on
+    consecutive ``bsz``-row batches of ``data``, after three warm-up
+    steps."""
     batches = [{"image": data["image"][i * bsz:(i + 1) * bsz],
                 "attrs": {k: v[i * bsz:(i + 1) * bsz] for k, v in data["attrs"].items()}}
                for i in range(3 + steps)]
     for b in batches[:3]:
         train_step(b)
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for b in batches[3:]:
             train_step(b)
-        sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    return {"profiled": f"{label}, {steps} steps",
-            "kernels_per_step": sum(e.count for e in device) / steps, "device_ms_per_step": busy_ms / steps,
-            "profiled_ms_per_step": wall_ms / steps, "idle": 1 - busy_ms / wall_ms}
+    return profile_call(run, steps, f"{label}, {steps} steps", dev)
 
 
 def step_profile(data, mode_kw, bsz: int, seed: int, dev, steps: int = 6):
@@ -1514,6 +1555,207 @@ def morpho_phases(args, dev, card, peak, tmp: str):
     return launches, lines
 
 
+# X2: the explainer CLIs' cuts (the JAX scripts' defaults: --limit 64,
+# --steps 100 or 30, --per-digit 4, SHAP --limit 4)
+X_LIMIT, X_STEPS = 8, 20
+
+
+def explainer_phases(args, dev, card, peak, tmp: str):
+    """Phases X1-X3: the paper's counterfactual explainers, their
+    benchmarks and the encoder fine-tune through the port's CLIs, after
+    C1-C4 and M1-M5 and on their artifacts in ``tmp``; the CLIs that write
+    into the working directory run in ``tmp/x``. Returns ({kernel: {CLI run:
+    launches}}, lines, the B = 1 kernel row)."""
+    import contextlib
+    import csv
+    import pickle
+
+    from imagecfgen_torch.cf.baselines import PixelBaselineExplainers
+    from imagecfgen_torch.cf.engine import CounterfactualEngine
+    from imagecfgen_torch.cf.explain import HingeLossCFExplainer
+    from imagecfgen_torch.cf.finetune import EncoderFinetuner, FinetuneConfig
+    from imagecfgen_torch.cli.common import (
+        bigan_from_state,
+        load_bigan,
+        load_classifier,
+        load_mnist_training_data,
+        load_vae,
+        read_png,
+        scale_attrs,
+    )
+    from imagecfgen_torch.models.bigan import mnist_bigan_config
+    from imagecfgen_torch.models.classifier import mnist_classifier_config, mnist_oracle_config
+    from imagecfgen_torch.models.vae import mnist_vae_config
+
+    launches, lines, secs = {"fused_encoder": {}, "fused_dense": {}}, [], {}
+    cli = cli_runner(dev, launches, secs, "X")
+    data, models, work = os.path.join(tmp, "data"), os.path.join(tmp, "models"), os.path.join(tmp, "x")
+    os.makedirs(work)
+    bigan_tar = os.path.join(models, "mnist-bigan.tar")
+    state, scaler, _ = load_bigan(bigan_tar, dev)
+    bigan = bigan_from_state(state, mnist_bigan_config(), dev).eval()
+    vae, vscaler, _ = load_vae(os.path.join(models, "mnist-vae.tar"), mnist_vae_config(), dev)
+    xt, at, _ = load_mnist_training_data(data, "test")
+
+    # --------------------------------- X1. the kernel at the explainers' shape
+    x1 = torch.from_numpy(xt[:1]).to(dev)
+    a1 = {k: torch.from_numpy(v[:1]).to(dev) for k, v in at.items()}
+    b1 = [trunk_at_training_shape(f"{what} at batch 1", enc, x1, sc.scale(a1), cfg.enc_plan,
+                                  args.seed + 60 + i, dev, peak, card, key="kernel_at_explainer_shape")
+          for i, (what, enc, sc, cfg) in enumerate((("MNIST BiGAN trunk", bigan.encoder, scaler, bigan.cfg),
+                                                     ("MNIST VAE trunk", vae.encoder, vscaler, vae.cfg)))]
+    lines += b1
+
+    # ------------------------------------------------ X2. the explainer CLIs
+    def expect(name, count):
+        got = launches["fused_encoder"][name]
+        check(got == count, f"X2: {name}: {got} fused_encoder launches, not {count}")
+
+    cases = ("--data-dir", data, "--model-dir", models)
+    cli("train_morphomnist_oracles", "train_morphomnist_oracles", "--data-dir", data, "--output-path", models,
+        "--epochs", 1)
+    for d in range(10):
+        check(os.path.exists(os.path.join(models, f"oracle-{d}.tar")), f"X2: oracle-{d}.tar was not written")
+    for c in range(10):  # the realism metric's per-digit autoencoders (C2 trained ae-all)
+        cli(f"train_morphomnist_ae --cls {c}", "train_morphomnist_ae", "--data-dir", data, "--output-path",
+            models, "--epochs", 1, "--cls", c)
+    expect("train_morphomnist_oracles", 0)
+
+    png = os.path.join(work, "mnist-cf-explain.png")
+    text = cli("mnist_cf_explain", "mnist_cf_explain", *cases, "--steps", X_STEPS, "--output", png)
+    check(re.search(r"best mixture weight: (nan|[0-9.]+)", text) is not None, "X2: no mixture weight printed")
+    h, w = read_png(png).shape
+    check(h == 3 * 28 and w in (28, 56, 84, 112), f"X2: {png} decodes to {(h, w)}")
+    expect("mnist_cf_explain", 2)  # one encode for each explainer
+
+    png = os.path.join(work, "mnist-cf-comparisons.png")
+    cli("mnist_cf_comparisons", "mnist_cf_comparisons", *cases, "--n-images", X_LIMIT, "--steps", X_STEPS,
+        "--output", png)
+    check(read_png(png).shape == (5 * 28, X_LIMIT * 28), f"X2: {png} decodes to {read_png(png).shape}")
+    expect("mnist_cf_comparisons", 2 * X_LIMIT)
+
+    pkl = os.path.join(work, "mnist-cf-matrix.pkl")
+    cli("make_mnist_cf_matrix", "make_mnist_cf_matrix", *cases, "--per-digit", 1, "--output", pkl)
+    with open(pkl, "rb") as f:
+        matrix = pickle.load(f)
+    check(set(matrix) == {"matrix", "counts", "metric"} and matrix["matrix"].shape == (10, 10),
+          "X2: the matrix pickle")
+    sources = len(set(at["digit"].argmax(axis=1).tolist()))
+    expect("make_mnist_cf_matrix", 9 * sources)
+    text = cli("show_cf_matrix", "show_cf_matrix", "--matrix", pkl, device_flag=False)
+    check(text.startswith("src\\tgt ") and len(text.splitlines()) == 14, "X2: show_cf_matrix's printout")
+
+    tables, limits = {}, ("--limit", X_LIMIT, "--steps", X_STEPS)
+    for name, per_row in (("mnist_oracle_scores", 2), ("morphomnist_cf_metrics", 4)):
+        out = os.path.join(work, f"{name}.csv")
+        text = cli(name, name, *cases, *limits, "--output", out)
+        with open(out, newline="") as f:
+            rows = list(csv.reader(f))
+        check(len(rows) == X_LIMIT + 1, f"X2: {out} has {len(rows) - 1} rows")
+        tables[name] = dict(zip(rows[0], zip(*rows[1:])))
+        expect(name, per_row * X_LIMIT)  # bigan (and vae): hinge + mixture, one encode each
+    scores = tables["mnist_oracle_scores"]
+    agree = {name: float(np.mean([int(v) for v in scores[f"{name}_oracle_agree"]]))
+             for name in ("bigan", "bigan_agnostic", "cf", "pn")}
+    js = {name: float(np.mean([float(v) for v in scores[f"{name}_js"]])) for name in agree}
+    check(all(-1e-6 <= v <= np.log(2) + 1e-6 for v in js.values()), f"X2: JS divergences {js}")
+    metrics = tables["morphomnist_cf_metrics"]
+    check("l1_vae" in metrics and all(v != "" for v in metrics["o_rec_bigan"]),
+          "X2: the cf-metrics CSV lacks the VAE's columns or an autoencoder's")
+    realism = {name: float(np.mean([float(v) for v in metrics[f"o_rec_{name}"]]))
+               for name in ("bigan", "bigan_agnostic", "vae", "vae_agnostic", "cf", "pn")}
+
+    with contextlib.chdir(work):
+        cli("morphomnist_attribute_shap", "morphomnist_attribute_shap", *cases, "--limit", 2)
+    for name in ("bigan", "vae"):
+        sv = np.load(os.path.join(work, f"{name}_attribute_shap.npy"))
+        check(sv.shape == (2, 10, 3) and np.isfinite(sv).all(), f"X2: {name}_attribute_shap.npy {sv.shape}")
+    expect("morphomnist_attribute_shap", 0)
+
+    # the pixel baselines on the card, as the benchmark CLIs run them
+    clf = load_classifier(os.path.join(models, "mnist_clf.tar"), mnist_classifier_config(), dev)
+    xb = torch.from_numpy(xt[:X_LIMIT]).to(dev)
+    base = PixelBaselineExplainers(clf, steps=3 * X_STEPS)
+    cf, cf_ok = base.counterfactual(xb)
+    pn, pn_ok, pp, pp_ok = base.contrastive(xb)
+    with torch.no_grad():
+        orig = clf(xb).argmax(-1)
+        check(torch.equal(clf(cf).argmax(-1) != orig, cf_ok), "X2: a Wachter cf's ok disagrees with its label")
+        check(torch.equal(clf(pn).argmax(-1) != orig, pn_ok), "X2: a CEM pn's ok disagrees with its label")
+    for what, img in (("cf", cf), ("pn", pn), ("pp", pp)):
+        check(bool(torch.isfinite(img).all()) and img.min().item() >= -1.0 and img.max().item() <= 1.0,
+              f"X2: the {what} images leave [-1, 1]")
+    check(bool((pp.abs() <= xb.abs()).all()), "X2: a pertinent positive is not a part of x")
+    oracle = load_classifier(os.path.join(models, "oracle-0.tar"), mnist_oracle_config(), dev)
+    with torch.no_grad():
+        check(oracle(xb).shape == (X_LIMIT, 1), "X2: an oracle's output")
+    # the steps' kernels and idle share: one hinge explanation, one Wachter run
+    hinge = HingeLossCFExplainer(bigan.encoder, bigan.generator, clf, "digit", 512, ("digit",),
+                                 ("slant", "intensity"))
+    a1s = scaler.scale(a1)
+    hinge.explain(x1, a1s, target_class=3, steps=2, rng=seeded(0))  # warm-up
+    profiles = {
+        "hinge_explain": profile_call(lambda: hinge.explain(x1, a1s, target_class=3, steps=X_STEPS, rng=seeded(0)),
+                                      X_STEPS, f"one hinge explanation, {X_STEPS} Adam steps", dev),
+        "wachter": profile_call(lambda: base.counterfactual(xb), base.steps,
+                                f"Wachter on {X_LIMIT} images x {len(base.c_values)} weights, {base.steps} steps",
+                                dev)}
+    lines.append({"explainers": "X2", "limit": X_LIMIT, "steps": X_STEPS, "oracle_agreement": agree,
+                  "mean_js": js, "mean_o_rec": realism,
+                  "baselines_ok": {"cf": cf_ok.float().mean().item(), "pn": pn_ok.float().mean().item(),
+                                   "pp": pp_ok.float().mean().item()}, "profiles": profiles, "card": card})
+
+    # ---------------------------------------------- X3. the encoder fine-tune
+    x_np, attrs, data_scaler = load_mnist_training_data(data)
+    tars, rates = [], {}
+    for metric in ("mse", "ssim"):
+        label = f"finetune_mnist_bigan --metric {metric}"
+        with contextlib.chdir(work):
+            text = cli(label, "finetune_mnist_bigan", "--data-dir", data, "--model-file", bigan_tar, "--steps", 1,
+                       "--metric", metric)
+        check(launches["fused_encoder"][label] == 0, f"X3: {label} reached fused_encoder (E needs a gradient)")
+        rates[metric] = steps_per_s(text)
+        tar = os.path.join(work, f"mnist-bigan-finetuned-{metric}.tar")
+        tuned, tscaler, meta = load_bigan(tar, dev)
+        check(meta.get("finetuned") == metric, f"X3: {tar} meta {meta}")
+        still = [k for k, v in tuned["E"].items() if torch.equal(v, state["E"][k])]
+        check(not still, f"X3: {label} left E's {still} as they were")
+        for part in ("G", "D"):
+            check(all(torch.equal(v, state[part][k]) for k, v in tuned[part].items()), f"X3: {label} changed {part}")
+        engine = CounterfactualEngine(bigan_from_state(tuned, mnist_bigan_config(), dev), None, tscaler, dev)
+        rec = engine.reconstruct(xt[:8], {k: v[:8] for k, v in at.items()})
+        check(rec.shape == (8, 28, 28, 1) and bool(torch.isfinite(rec).all()), f"X3: {tar} does not reconstruct")
+        tars.append(tar)
+        ft = EncoderFinetuner(bigan_from_state(tuned, mnist_bigan_config(), dev),
+                              FinetuneConfig(metric=metric), dev, seed=args.seed + 62)
+        rows = {"image": torch.from_numpy(x_np[:9 * 128]).to(dev),
+                "attrs": {k: torch.from_numpy(v[:9 * 128]).to(dev)
+                          for k, v in scale_attrs(data_scaler, attrs).items()}}
+        lines.append({"cli_training": f"finetune_mnist_bigan --metric {metric}", "batch": 128,
+                      "steps_per_epoch": len(x_np) // 128, "cli_steps_per_s": rates[metric],
+                      "profile_of_a_like_trainer": profile_steps(
+                          ft.train_step, rows, 128, f"a fine-tuner built as the CLI builds it, seed "
+                          f"{args.seed + 62}", dev), "card": card})
+    png = os.path.join(work, "mnist-reconstructions.png")
+    text = cli("mnist_reconstructions", "mnist_reconstructions", "--data-dir", data, "--model-files", bigan_tar,
+               *tars, "--output", png)
+    check(read_png(png).shape == (4 * 28, 10 * 28), f"X3: {png} decodes to {read_png(png).shape}")
+    expect("mnist_reconstructions", 3)  # one encode for each model file
+
+    explain_runs = ("mnist_cf_explain", "mnist_cf_comparisons", "make_mnist_cf_matrix", "mnist_oracle_scores",
+                    "morphomnist_cf_metrics")
+    fan_in = b1[0]
+    b1_row = row("fused_encoder:b1", F32, "imagecfgen_torch/csrc/fused_encoder.cu",
+                 "imagecfgen_tpu/ops/pallas/fused_encoder.py:127",
+                 sum(launches["fused_encoder"][r] for r in explain_runs), fan_in["max_abs_err"], fan_in["ms"],
+                 fan_in["plain_ms"], fan_in["library_ms"], fan_in["flops"], fan_in["bytes"], peak, card, batch=1,
+                 device_ms=fan_in["device_ms"], library_device_ms=fan_in["library_device_ms"],
+                 cli_launches={r: launches["fused_encoder"][r] for r in explain_runs}, train_launches=None,
+                 train_steps=None)
+    lines.append({"cli_seconds": secs, "phase": "X", "card": card})
+    return launches, lines, b1_row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1668,17 +1910,22 @@ def main(argv=None) -> int:
         check(count is None or count > 0, f"the training path did not reach the {kernel['name']} kernel")
         kernel.update(train_launches=count, train_steps=steps)
 
-    # ----------------------- C1-C4, M1-M5. the MNIST CLIs and the comparison
+    # ------- C1-C4, M1-M5, X1-X3. the MNIST CLIs, the comparison, the explainers
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
         m_launches, m_lines = morpho_phases(args, dev, card, peak, tmp)
-    for k, runs in m_launches.items():
-        cli_launches[k].update(runs)
-    cli_lines += m_lines
+        x_launches, x_lines, b1_row = explainer_phases(args, dev, card, peak, tmp)
+    for more in (m_launches, x_launches):
+        for k, runs in more.items():
+            cli_launches[k].update(runs)
+    cli_lines += m_lines + x_lines
     for kernel in kernels:  # the CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)
     check(sum(cli_launches["fused_encoder"].values()) > 0, "the CLIs did not reach the fused_encoder kernel")
+    check(b1_row["launches"] > 0 and all(n > 0 for n in b1_row["cli_launches"].values()),
+          "an explainer CLI did not reach the fused_encoder kernel")
+    kernels.append(b1_row)
     for line in engine_lines + score_lines + train_lines + cli_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))

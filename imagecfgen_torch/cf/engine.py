@@ -25,13 +25,14 @@ from ..models.bigan import BiGAN
 
 class CounterfactualEngine:
     """Binds a BiGAN, an attribute SCM (any object with
-    ``.graph/.params/.state/.to``) and a scaler, on one device."""
+    ``.graph/.params/.state/.to``; None serves :meth:`reconstruct` only)
+    and a scaler, on one device."""
 
     def __init__(self, bigan: BiGAN, scm, scaler: AttributeScaler,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.bigan = bigan.to(self.device).eval()
-        self.scm = scm.to(self.device)
+        self.scm = scm.to(self.device) if scm is not None else None
         self.scaler = scaler
 
     # -------------------------------------------------- attr dict plumbing

@@ -184,6 +184,47 @@ def load_classifier(path: str, cfg: Union[ClassifierConfig, AutoEncoderConfig],
     return model.eval()
 
 
+# ------------------------------------------------------------ explainers
+
+
+def explainer_models(bigan_path: str, clf_path: str, device: DeviceLike = None):
+    """``(encoder, generator, classifier)`` of the MNIST BiGAN in
+    ``bigan_path`` and the MNIST classifier in ``clf_path`` (either
+    package's files), in eval mode on ``device``: the encode, decode and
+    classify functions the explainers take."""
+    from ..models.bigan import mnist_bigan_config
+    from ..models.classifier import mnist_classifier_config
+
+    state, _, _ = load_bigan(bigan_path, device)
+    model = bigan_from_state(state, mnist_bigan_config(), device).eval()
+    return model.encoder, model.generator, load_classifier(clf_path, mnist_classifier_config(), device)
+
+
+def rows_on(x: np.ndarray, attrs: Mapping[str, np.ndarray], rows: slice, device: DeviceLike = None):
+    """``x[rows]`` and each attribute's ``[rows]`` as tensors on ``device``."""
+    return (torch.from_numpy(np.ascontiguousarray(x[rows])).to(device),
+            {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[rows])).to(device)
+             for k, v in attrs.items()})
+
+
+def write_csv(path: str, rows: Sequence[Mapping]) -> None:
+    """Rows of dicts as CSV through the ``csv`` module, as
+    ``pandas.DataFrame(rows).to_csv(path, index=False)`` writes them: the
+    columns in the order the first row holds them, NaN as an empty field."""
+    import csv
+    import math
+
+    def field(v):
+        v = v.item() if isinstance(v, np.generic) else v
+        return "" if isinstance(v, float) and math.isnan(v) else v
+
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(list(rows[0]))
+        for r in rows:
+            out.writerow([field(r[k]) for k in rows[0]])
+
+
 # ------------------------------------------------------------------ PNG
 
 

@@ -32,13 +32,40 @@ def test_no_banned_imports(path):
 
 def test_sources_cover_the_training_slice():
     """The file list above is a glob; pin that it reaches the trainers, the
-    SCM fit loop and the checkpoint reader (which must decode msgpack without
-    importing it)."""
+    SCM fit loop, the checkpoint reader (which must decode msgpack without
+    importing it), the explainers, the pixel baselines, the encoder
+    fine-tuner and SSIM (whose JAX scripts write their CSVs with pandas)."""
     names = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {"imagecfgen_torch/train/gan_trainer.py", "imagecfgen_torch/train/clf_trainer.py",
             "imagecfgen_torch/train/optim.py", "imagecfgen_torch/train/_guards.py",
             "imagecfgen_torch/scm/fit.py", "imagecfgen_torch/core/checkpoint.py",
+            "imagecfgen_torch/cf/explain.py", "imagecfgen_torch/cf/baselines.py",
+            "imagecfgen_torch/cf/finetune.py", "imagecfgen_torch/ops/ssim.py",
             "chip_smoke.py"} <= names
+
+
+def test_sources_cover_the_explainer_clis():
+    """Pin that the glob reaches the ten CLIs of the explainer slice."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    clis = ("train_morphomnist_oracles", "mnist_cf_explain", "mnist_cf_comparisons", "make_mnist_cf_matrix",
+            "show_cf_matrix", "mnist_oracle_scores", "morphomnist_cf_metrics", "finetune_mnist_bigan",
+            "mnist_reconstructions", "morphomnist_attribute_shap")
+    assert {f"imagecfgen_torch/cli/{m}.py" for m in clis} <= names
+
+
+@pytest.mark.parametrize("entry", ["EncoderFinetuner", "mnist_cf_explain"])
+def test_explainer_slice_without_device_raises_when_no_gpu(monkeypatch, entry, tmp_path):
+    from imagecfgen_torch.cf.finetune import EncoderFinetuner, FinetuneConfig
+    from imagecfgen_torch.cli import mnist_cf_explain
+    from imagecfgen_torch.models.bigan import BiGAN, mnist_bigan_config
+
+    model = BiGAN(mnist_bigan_config(64), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "EncoderFinetuner":
+            EncoderFinetuner(model, FinetuneConfig())
+        else:
+            mnist_cf_explain.main(["--data-dir", str(tmp_path), "--model-dir", str(tmp_path)])
 
 
 def test_sources_cover_the_cli_slice():
