@@ -170,17 +170,67 @@ X3. ``finetune_mnist_bigan`` for one epoch with ``--metric mse`` and
     idle share of a fine-tuner built as the CLI builds it
     (``{"cli_training": "finetune_mnist_bigan ..."}`` lines).
 
-The ``kernels`` line lists every kernel row (``launches``: the serving path's;
-``train_launches`` over ``train_steps``: the training path's;
-``cli_launches``: each CLI run's, C, M and X phases; the ``fused_encoder:b1``
-row is the explainer path's, (1, 28, 28, 5), its ``launches`` the explainer
-CLIs'); the last line of output
+and for the AudioMNIST pipeline through the port's own entry points, at full
+width (``audio_mnist_bigan_config(d=64)``, ``audio_mnist_classifier_config(
+width=1.0)``) on the synthetic stand-in (60 subjects x 10 digits x 4 runs:
+2,400 clips, 1,800 training and 600 validation):
+
+AU1. the spectrograms of all 2,400 clips on the card, (128, 128) each:
+     shape, finiteness, the power held against the plain framing +
+     ``torch.fft.rfft`` version (4e-6 of its max), clips/s; a Griffin-Lim
+     round trip on 8 clips (32 iterations), timed, its magnitude
+     spectrogram correlating with the target's at 0.99 or more;
+AU2. the training CLIs: ``train_audio_mnist_attribute_scm``,
+     ``train_audio_mnist_clf`` for ``digit`` and ``subject`` (one epoch each;
+     ``fused_dense`` at least once a step), ``train_audio_mnist_bigan`` for
+     one epoch of 14 steps at batch 128 (``--init-std 0.01``) in float32 and
+     with ``--compute-dtype bfloat16``: ``fused_encoder`` once a step in both,
+     every parameter moved, parameters and Adam state float32; kernels a
+     step, device time and idle share of a like trainer in each type and of a
+     like classifier trainer (``{"cli_training": ...}`` lines);
+AU3. bf16 after training: ``fused_encoder`` in bf16 on the bf16-trained trunk
+     at (128, 128, 128, 7) against its plain version (2**-6 gate), timed
+     (the ``fused_encoder:audio_train_bf16`` row); the trainer's recompute
+     (the kernel on its cached bf16 weight copies) against the plain version
+     on copies cast afresh, after the epoch, after one more Adam step and
+     after an in-place scale of a kernel; then the bf16 run resumed after its
+     first epoch (``--resume``) against an uninterrupted two-epoch run, bit
+     for bit, under cuDNN's deterministic algorithms (as T6);
+AU4. the scoring and eval CLIs on AU2's float32 artifacts, each with its
+     seconds and both kernels' launches, held to the counts the data gives:
+     ``audiomnist_bigan_score``, ``audiomnist_generator_score`` (``--n
+     512``), ``test_audio_gan``, ``audiomnist_generate`` (non-silent 8 kHz
+     int16 wavs and their JSON), ``audio_mnist_reconstruction --write-wavs``
+     (the grid's size, the wavs), ``audiomnist_cf_eval`` (the ratio
+     matrices' shape, finite) and ``audiomnist_cf_classifier_metric``;
+AU5. ``fused_encoder`` at the shape ``audiomnist_cf_eval`` gives it,
+     (16, 128, 128, 7), on AU2's trunk and on fan-in weights, timed beside
+     its plain version and the ``F.conv2d`` stack, with its bound (a
+     ``kernel_at_cf_eval_shape`` line, the ``fused_encoder:audio_cf_eval``
+     row); then both kernels against their plain versions on the inputs of
+     the first launch at each (type, shape) that the AU2-AU4 CLIs gave them
+     (the last, short batches of the score and eval CLIs, batch 256 of
+     ``audiomnist_cf_classifier_metric`` and ``_generator_score``, the ten
+     clips of ``audiomnist_generate``, ...), each shape the data's counts
+     call for required among them (a ``launch_shapes`` line). Copying those
+     inputs adds to the seconds of the CLI run that first launches a shape.
+
+The ``kernels`` line lists every kernel row (``launches``: the count of the
+row's own path, read around it alone: the serving path's, the explainer
+CLIs' for ``fused_encoder:b1`` at (1, 28, 28, 5), ``audiomnist_cf_eval``'s
+for ``fused_encoder:audio_cf_eval``, and the bf16 training CLI's for
+``fused_encoder:audio_train_bf16``, since no serving CLI runs the kernel in
+bf16; ``train_launches`` over ``train_steps``: the training path's;
+``cli_launches``: each CLI run's at the row's shape, C, M, X and AU phases;
+the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
+CLIs' at every batch); the last line of output
 is ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
 name and power limit of the card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -518,6 +568,18 @@ def layer_times(name: str, pairs, conv_ops, feats, dtype):
 
 def seeded(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
+
+
+def same_tree(a, b, path: str) -> None:
+    """Two states alike bit for bit, tensor for tensor."""
+    if isinstance(b, dict):
+        check(set(a) == set(b), f"{path}: keys differ")
+        for k in b:
+            same_tree(a[k], b[k], f"{path}.{k}")
+    elif torch.is_tensor(b):
+        check(torch.equal(a, b), f"{path} differs")
+    else:
+        check(a == b, f"{path}: {a} != {b}")
 
 
 def audio_phases(args, dev, card, peak):
@@ -917,18 +979,9 @@ def training_phases(args, dev, card, peak):
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = cudnn_det
-    for k in METRICS:
-        check(torch.equal(ma[k], mb[k]), f"T6: {k} differs after the resumed step")
+    same_tree({k: ma[k] for k in METRICS}, {k: mb[k] for k in METRICS}, "T6 metrics after the resumed step")
     sa, sb = tr.state_dict(), other.state_dict()
-    for part in ("E", "G", "D"):
-        for n in sa[part]:
-            check(torch.equal(sa[part][n], sb[part][n]), f"T6: {part}.{n} differs after the resumed step")
-    for opt in ("opt_eg", "opt_d"):
-        check(sa[opt]["count"] == sb[opt]["count"], f"T6: {opt} count")
-        for moment in ("mu", "nu"):
-            for n in sa[opt][moment]:
-                check(torch.equal(sa[opt][moment][n], sb[opt][moment][n]), f"T6: {opt}.{moment}.{n} differs")
-    check(torch.equal(sa["rng"], sb["rng"]), "T6: the generator's state differs")
+    same_tree(sa, sb, "T6 state after the resumed step")
     print("T6 checkpoint: the resumed trainer's next step is bit-identical (parameters, buffers, "
           "both Adam states, metrics, generator state)")
     del other, sa, sb
@@ -1756,6 +1809,398 @@ def explainer_phases(args, dev, card, peak, tmp: str):
     return launches, lines, b1_row
 
 
+# the AudioMNIST slice at full width: audio_mnist_bigan_config(d=64) and
+# audio_mnist_classifier_config(width=1.0), on the synthetic stand-in at four
+# runs a (subject, digit): 2,400 clips, 1,800 training and 600 validation
+AU_D, AU_WIDTH, AU_RUNS, AU_BATCH = 64, 1.0, 4, 128
+AU_GL_CLIPS = 8  # clips of AU1's Griffin-Lim round trip
+
+
+def dtype_name(dtype) -> str:
+    return "float32" if dtype == F32 else "bfloat16"
+
+
+@contextlib.contextmanager
+def recording_launches(seen: dict, label: str):
+    """Both kernels' launches with the inputs of the first launch at each
+    (kernel, type, shape) copied into ``seen`` under the CLI run ``label``
+    that gave it (``plan_gemm`` picks tiles and K splits from the shape). The
+    wrappers' own launch functions still launch and count."""
+    from imagecfgen_torch.ops import fused_dense as fd
+    from imagecfgen_torch.ops import fused_encoder as fe
+
+    enc, dense = fe._launch, fd._launch
+
+    def enc_shim(feats, pairs, conv_ops, first):
+        key = ("fused_encoder", TAG[feats.dtype], tuple(feats.shape))
+        if key not in seen:
+            seen[key] = (label, feats.clone(), [(w.detach().clone(), b.detach().clone()) for w, b in pairs],
+                         tuple(conv_ops), first)
+        return enc(feats, pairs, conv_ops, first)
+
+    def dense_shim(x, w, b, slope):
+        key = ("fused_dense", TAG[x.dtype], (x.shape[0], x.shape[1], w.shape[0]))
+        if key not in seen:
+            seen[key] = (label, x.detach().clone(), w.detach().clone(), b.detach().clone(), slope)
+        return dense(x, w, b, slope)
+
+    fe._launch, fd._launch = enc_shim, dense_shim
+    try:
+        yield
+    finally:
+        fe._launch, fd._launch = enc, dense
+
+
+def check_seen_launches(seen: dict, plan) -> list:
+    """Each kernel against its plain version on the inputs of the first
+    launch at each shape in ``seen`` (the trunk through :func:`check_trunk`,
+    which also updates a weight in place); returns their errors, and, in
+    float32, the kernel's and the plain version's distances from the same
+    function in float64 (printed, not gated)."""
+    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu, fused_dense_reference
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward, plan_conv_ops
+
+    out = []
+    for key in sorted(seen):
+        kernel, tag, shape = key
+        dtype = F32 if tag == "f32" else BF16
+        what = f"{'x'.join(map(str, shape))} (first launched by {seen[key][0]})"
+        with torch.no_grad():
+            if kernel == "fused_encoder":
+                _, feats, pairs, conv_ops, first = seen[key]
+                check(first == 0 and conv_ops == plan_conv_ops(plan), f"AU5: {what} ran another trunk")
+                params = {f"conv_{i}_{part}": t for i, pair in enumerate(pairs)
+                          for part, t in zip(("kernel", "bias"), pair)}
+                err, _, _, _, plain = check_trunk(what, params, feats, plan, dtype)
+                got = fused_encoder_forward(params, feats, plan)
+                exact = library_stack(feats.double(), [(w.double(), b.double()) for w, b in pairs], conv_ops)
+            else:
+                _, x, w, b, slope = seen[key]
+                got = fused_dense_lrelu(x, w, b, slope)
+                torch.cuda.synchronize()
+                plain = fused_dense_reference(x, w, b, slope)
+                err = agree(f"fused_dense {what}", got, plain, dtype)
+                exact = F.leaky_relu(F.linear(x.double(), w.double(), b.double()), slope)
+        entry = {"kernel": kernel, "dtype": tag, "shape": list(shape), "first_run": seen[key][0],
+                 "max_abs_err": err, "max_abs_plain": plain.float().abs().max().item()}
+        if dtype == F32:
+            entry.update(kernel_vs_f64=(got.double() - exact).abs().max().item(),
+                         plain_vs_f64=(plain.double() - exact).abs().max().item())
+            print(f"{kernel} {what}: max|kernel - f64| = {entry['kernel_vs_f64']:.3e}, max|plain - f64| = "
+                  f"{entry['plain_vs_f64']:.3e} (printed, not gated)")
+        out.append(entry)
+    return out
+
+
+def audio_cli_phases(args, dev, card, peak, tmp: str):
+    """Phases AU1-AU5: the AudioMNIST pipeline through the port's own entry
+    points at full width, in ``tmp/audio*``. Returns ({kernel: {CLI run:
+    launches}}, lines, the two new kernel rows)."""
+    import dataclasses
+
+    from imagecfgen_torch.cli.audio_common import (
+        load_audio_bigan,
+        load_audio_bigan_model,
+        prepare_training_arrays,
+        validation_images,
+    )
+    from imagecfgen_torch.cli.common import read_png
+    from imagecfgen_torch.data.audio_mnist import (
+        AUDIO_STFT,
+        GRIFFIN_LIM_STFT,
+        AudioMNISTData,
+        audio_from_log_spect,
+    )
+    from imagecfgen_torch.models.bigan import BiGAN, audio_mnist_bigan_config
+    from imagecfgen_torch.models.classifier import CNNClassifier, audio_mnist_classifier_config
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward, fused_encoder_reference, plan_conv_ops
+    from imagecfgen_torch.ops.stft import spectrogram, stft_reference
+    from imagecfgen_torch.train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
+    from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+    from scipy.io import wavfile
+
+    launches, lines, secs = {"fused_encoder": {}, "fused_dense": {}}, [], {}
+    run, seen = cli_runner(dev, launches, secs, "AU"), {}
+
+    def cli(label, name, *argv):
+        with recording_launches(seen, label):
+            return run(label, name, *argv)
+
+    models, bf16_dir = os.path.join(tmp, "audio"), os.path.join(tmp, "audio-bf16")
+    work = os.path.join(tmp, "audio-out")
+
+    # ----------------------------------------------- AU1. the data on the card
+    t0 = time.perf_counter()
+    data = AudioMNISTData(None, synthetic_runs=AU_RUNS)
+    synth_s = time.perf_counter() - t0
+    n = len(data.raw["run"])
+    check(n == 600 * AU_RUNS, f"AU1: the stand-in has {n} clips")
+    data.all_spectrograms(excluded_runs=[], device=dev)  # warm-up: cuFFT's plans
+    sync(dev)
+    t0 = time.perf_counter()
+    spects, _, _ = data.all_spectrograms(excluded_runs=[], device=dev)
+    sync(dev)
+    spect_s = time.perf_counter() - t0
+    check(tuple(spects.shape) == (n, 128, 128) and spects.dtype == F32 and spects.device.type == dev.type,
+          f"AU1: spectrograms {tuple(spects.shape)} {spects.dtype} on {spects.device}")
+    check(bool(torch.isfinite(spects).all()), "AU1: a non-finite spectrogram")
+    power_err = 0.0
+    for i in range(0, n, 512):  # against the plain framing + rfft path, in power
+        audio = torch.from_numpy(data.raw["audio"][i:i + 512]).to(dev)
+        power, plain = spectrogram(audio, AUDIO_STFT), stft_reference(audio, AUDIO_STFT).abs() ** 2
+        power_err = max(power_err, ((power - plain).abs().max() / plain.abs().max()).item())
+        check(torch.equal(spects[i:i + 512], torch.log(power + 1e-6)), "AU1: all_spectrograms is not log(power + 1e-6)")
+    print(f"AU1 spectrograms: {n} clips in {spect_s:.3f} s on the card ({n / spect_s:.0f} clips/s); "
+          f"max|torch.stft - plain| {power_err:.3e} of max power (gate 4e-6)")
+    check(power_err <= 4e-6, "AU1: the spectrogram disagrees with its plain framing + rfft version")
+    log_spec = spects[:AU_GL_CLIPS]
+    audio_from_log_spect(log_spec, rng=seeded(args.seed), n_iter=1)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    wav = audio_from_log_spect(log_spec, rng=seeded(args.seed + 70))
+    sync(dev)
+    gl_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(wav.shape) == (AU_GL_CLIPS, 8129) and bool(torch.isfinite(wav).all()), "AU1: Griffin-Lim's output")
+    rebuilt = spectrogram(wav, GRIFFIN_LIM_STFT).sqrt().reshape(AU_GL_CLIPS, -1)
+    target = torch.exp(log_spec).sqrt().reshape(AU_GL_CLIPS, -1)
+    corr = [float(np.corrcoef(target[i].cpu().numpy(), rebuilt[i].cpu().numpy())[0, 1]) for i in range(AU_GL_CLIPS)]
+    print(f"AU1 Griffin-Lim: {AU_GL_CLIPS} clips, 32 iterations in {gl_ms:.1f} ms; magnitude correlation with "
+          f"the target {min(corr):.4f}..{max(corr):.4f} (gate 0.99)")
+    check(min(corr) >= 0.99, "AU1: Griffin-Lim's round trip lost the spectrogram")
+    lines.append({"audio_data": "AU1", "clips": n, "synthesis_s": synth_s, "spectrogram_s": spect_s,
+                  "clips_per_s": n / spect_s, "max_rel_err_power": power_err, "griffin_lim_clips": AU_GL_CLIPS,
+                  "griffin_lim_ms": gl_ms, "griffin_lim_min_corr": min(corr), "card": card})
+    del spects, log_spec, wav
+
+    # -------------------------------------------------- AU2. training CLIs
+    n_train = len(data.split_indices(excluded_runs=data.training_excluded_runs))
+    steps = n_train // AU_BATCH
+    gan = ("--d", AU_D, "--init-std", 0.01, "--batch-size", AU_BATCH)
+    cli("train_audio_mnist_attribute_scm", "train_audio_mnist_attribute_scm", "--output-path", models,
+        "--steps", 200)
+    for attr in ("digit", "subject"):
+        cli(f"train_audio_mnist_clf --attribute {attr}", "train_audio_mnist_clf", "--output-path", models,
+            "--attribute", attr, "--epochs", 1, "--width", AU_WIDTH, "--batch-size", AU_BATCH)
+        got = launches["fused_dense"][f"train_audio_mnist_clf --attribute {attr}"]
+        check(got >= steps, f"AU2: train_audio_mnist_clf --attribute {attr}: {got} fused_dense launches in "
+                            f"{steps} steps")
+    texts = {}
+    for dtype, out in ((F32, models), (BF16, bf16_dir)):
+        label = f"train_audio_mnist_bigan --compute-dtype {dtype_name(dtype)}"
+        texts[dtype] = cli(label, "train_audio_mnist_bigan", "--output-path", out, "--steps", 1, *gan,
+                           "--compute-dtype", dtype_name(dtype))
+        got = launches["fused_encoder"][label]
+        check(got == steps, f"AU2: {label}: {got} fused_encoder launches in {steps} steps, not one a step")
+        state, _, meta = load_audio_bigan(os.path.join(out, "audio-mnist-bigan.tar"), dev)
+        check(state["step"] == steps and state["opt_d"]["count"] == 2 * steps and meta["epoch"] == 1,
+              f"AU2: {label} ended at step {state['step']}")
+        cfg = dataclasses.replace(audio_mnist_bigan_config(AU_D, compute_dtype=dtype), init_std=0.01)
+        fresh = BiGAN(cfg, dev, seeded(0))  # the CLI's initial parameters (--seed 0)
+        for part, module in (("E", fresh.encoder), ("G", fresh.generator), ("D", fresh.discriminator)):
+            for k, v in module.state_dict().items():
+                check(state[part][k].dtype == F32, f"AU2: {label}: {part}.{k} is {state[part][k].dtype}")
+                check(not torch.equal(state[part][k], v), f"AU2: {label}: {part}.{k} did not move")
+        for opt in ("opt_eg", "opt_d"):
+            check({t.dtype for m in ("mu", "nu") for t in state[opt][m].values()} == {F32},
+                  f"AU2: {label}: Adam's {opt} is not float32")
+        del state, fresh
+    x_train, a_train, _ = prepare_training_arrays(data, device=dev)
+    rows = {"image": x_train, "attrs": {k: torch.from_numpy(v).to(dev) for k, v in a_train.items()}}
+    for dtype in DTYPES:
+        cfg = dataclasses.replace(audio_mnist_bigan_config(AU_D, compute_dtype=dtype), init_std=0.01)
+        like = GANTrainer(BiGAN(cfg, dev, seeded(args.seed + 71)),
+                          GANTrainConfig(betas=(0.5, 0.9), batch_size=AU_BATCH), dev, seed=args.seed + 71)
+        prof = profile_steps(like.train_step, rows, AU_BATCH, f"a trainer built as the CLI builds it, seed "
+                             f"{args.seed + 71}", dev)
+        lines.append({"cli_training": f"train_audio_mnist_bigan --compute-dtype {dtype_name(dtype)}",
+                      "batch": AU_BATCH, "d": AU_D, "steps_per_epoch": steps,
+                      "cli_steps_per_s": steps_per_s(texts[dtype]), "profile_of_a_like_trainer": prof,
+                      "card": card})
+        del like
+    clf = CNNClassifier(audio_mnist_classifier_config(10, width=AU_WIDTH), dev, seeded(args.seed + 72))
+    ctr = SupervisedTrainer(clf, SupervisedTrainConfig(batch_size=AU_BATCH), dev, seed=args.seed + 72)
+    y = torch.from_numpy(a_train["digit"]).to(dev)
+    cbatches = [{"x": x_train[i * AU_BATCH:(i + 1) * AU_BATCH], "y": y[i * AU_BATCH:(i + 1) * AU_BATCH]}
+                for i in range(9)]
+    for b in cbatches[:3]:
+        ctr.train_step(b)
+    sync(dev)
+    cprof = profile_call(lambda: [ctr.train_step(b) for b in cbatches[3:]], 6,
+                         f"a classifier trainer built as the CLI builds it, 6 steps, seed {args.seed + 72}", dev)
+    lines.append({"cli_training": "train_audio_mnist_clf --attribute digit", "batch": AU_BATCH,
+                  "steps_per_epoch": steps, "cli_seconds": secs["train_audio_mnist_clf --attribute digit"],
+                  "profile_of_a_like_trainer": cprof, "card": card})
+    del clf, ctr, cbatches, y
+
+    # ------------------------------------------ AU3. bf16 after training
+    plan = audio_mnist_bigan_config(AU_D).enc_plan
+    conv_ops = plan_conv_ops(plan)
+    state, _, _ = load_audio_bigan(os.path.join(bf16_dir, "audio-mnist-bigan.tar"), dev)
+    cfg = dataclasses.replace(audio_mnist_bigan_config(AU_D, compute_dtype=BF16), init_std=0.01)
+    tr = GANTrainer(BiGAN(cfg, dev, seeded(0)), GANTrainConfig(betas=(0.5, 0.9), batch_size=AU_BATCH), dev)
+    tr.load_state_dict(state)
+    del state
+    xb, ab = rows["image"][:AU_BATCH], {k: v[:AU_BATCH] for k, v in rows["attrs"].items()}
+    trunk = tr.model.encoder.trunk
+    with torch.no_grad():
+        feats = tr.model.encoder.attr_channels(xb, ab)
+        trained = {k: p.detach().clone() for k, p in trunk.named_parameters()}
+        err, cast, pairs, tfeats, plain = check_trunk("audio trunk, trained in bf16", trained, feats, plan, BF16)
+        flops, nbytes = trunk_cost(tuple(tfeats.shape), pairs, conv_ops, tfeats.element_size())
+        top = plain.float().abs().max().item()
+        print(f"AU3 fused_encoder on the bf16-trained trunk: max|plain| {top:.3e}, relative error "
+              f"{err / max(top, 1e-30):.3e} (printed, not gated)")
+
+    def recompute_against_fresh_casts(what):
+        """The recompute's codes (the kernel on the trainer's cached bf16
+        weight copies) against the plain version on copies cast now."""
+        z = torch.randn((AU_BATCH, 1, 1, cfg.latent_dim), generator=seeded(args.seed + 73)).to(dev)
+        codes, _ = tr.recompute(xb, ab, z)
+        with torch.no_grad():
+            now = [(w.detach().to(BF16), b.detach().to(BF16)) for w, b in zip(*[iter(trunk.parameters())] * 2)]
+            want = fused_encoder_reference(tr.model.encoder.attr_channels(xb, ab), now, conv_ops)
+        got = codes.reshape(AU_BATCH, -1).to(BF16)
+        agree(f"AU3 recompute after {what}", got, want, BF16)
+        # the trained trunk's codes are small (~1e-3): held also relative to their own top,
+        # where weights a step stale would show
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        print(f"AU3 recompute after {what}: max|kernel - plain| / max|plain| = {rel:.3e} (gate {2.0 ** -6:.3e})")
+        check(rel <= 2.0 ** -6, f"AU3: the recompute after {what} disagrees with freshly cast weights")
+        return codes
+
+    before = recompute_against_fresh_casts("the bf16 epoch")
+    tr.train_step({"image": xb, "attrs": ab})  # one more Adam step: every parameter updated in place
+    after = recompute_against_fresh_casts("one more Adam step")
+    with torch.no_grad():
+        getattr(trunk, f"conv_{len(conv_ops) - 1}_kernel").mul_(1.5)
+    scaled = recompute_against_fresh_casts("an in-place scale of the last kernel")
+    check(not torch.equal(before, after) and not torch.equal(after, scaled),
+          "AU3: the recompute's codes did not follow the weight updates")
+    with torch.no_grad():
+        bf16_ms = time_ms(lambda: fused_encoder_forward(cast, tfeats, plan), reps=10, warmup=2)
+        bf16_device = device_ms(lambda: fused_encoder_forward(cast, tfeats, plan), reps=20)
+        bf16_plain = time_ms(lambda: fused_encoder_reference(tfeats, pairs, conv_ops), reps=2, warmup=1)
+        bf16_lib = time_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=10, warmup=2)
+        bf16_lib_device = device_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=20)
+    del tr, trained, cast, pairs, plain, feats
+    train_row = row("fused_encoder:audio_train", BF16, "imagecfgen_torch/csrc/fused_encoder.cu",
+                    "imagecfgen_tpu/ops/pallas/fused_encoder.py:127", None, err, bf16_ms, bf16_plain, bf16_lib,
+                    flops, nbytes, peak, card, batch=AU_BATCH, device_ms=bf16_device,
+                    library_device_ms=bf16_lib_device)
+    train_row["name"] = "fused_encoder:audio_train_bf16"
+    del tfeats
+
+    # the resumed bf16 run's next steps, bit for bit (cuDNN's deterministic algorithms, as T6)
+    runs = {r: os.path.join(tmp, f"audio-bf16-{r}") for r in ("split", "straight")}
+    bf = (*gan, "--compute-dtype", "bfloat16")
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cli("train_audio_mnist_bigan bf16 epoch 1", "train_audio_mnist_bigan", "--output-path", runs["split"],
+            "--steps", 1, *bf)
+        resumed = cli("train_audio_mnist_bigan bf16 --resume", "train_audio_mnist_bigan", "--output-path",
+                      runs["split"], "--steps", 2, "--resume", *bf)
+        cli("train_audio_mnist_bigan bf16 epochs 1-2", "train_audio_mnist_bigan", "--output-path",
+            runs["straight"], "--steps", 2, *bf)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn_det
+    check(f"at epoch 1 (step {steps})" in resumed, "AU3: the bf16 --resume did not start at its step")
+    got, _, _ = load_audio_bigan(os.path.join(runs["split"], "audio-mnist-bigan.tar"), dev)
+    want, _, _ = load_audio_bigan(os.path.join(runs["straight"], "audio-mnist-bigan.tar"), dev)
+    same_tree(got, want, "AU3 resumed bf16 state")
+    print(f"AU3 bf16 --resume: the resumed run's epoch 2 ({steps} steps) equals the uninterrupted run's bit for "
+          "bit (parameters, both Adam states, generator state)")
+    del got, want
+
+    # --------------------------------------------- AU4. scoring and eval CLIs
+    n_val = len(data.split_indices(excluded_runs=data.validation_excluded_runs))
+    cases = ("--model-dir", models)
+    cf_acc = printed_score(cli("audiomnist_bigan_score", "audiomnist_bigan_score", *cases),
+                           "digit cf accuracy")
+    gen_acc = printed_score(cli("audiomnist_generator_score", "audiomnist_generator_score", *cases, "--n", 512),
+                            "generated digit accuracy")
+    check("ok" in cli("test_audio_gan", "test_audio_gan").split(), "AU4: test_audio_gan did not end in ok")
+    gen = os.path.join(work, "generated")
+    cli("audiomnist_generate", "audiomnist_generate", *cases, "--outdir", gen,
+        "--digit-clf", os.path.join(models, "audio-mnist-digit-clf.tar"))
+    for i in range(10):
+        sr, wav = wavfile.read(os.path.join(gen, f"sample-{i}.wav"))
+        check(sr == 8000 and wav.dtype == np.int16 and np.abs(wav).max() == 32767,
+              f"AU4: sample-{i}.wav is not a non-silent 8 kHz int16 wav")
+        with open(os.path.join(gen, f"sample-{i}.json")) as f:
+            check("digit_pred" in json.load(f), f"AU4: sample-{i}.json")
+    rec = os.path.join(work, "reconstructions")
+    cli("audio_mnist_reconstruction", "audio_mnist_reconstruction", *cases, "--output", rec, "--write-wavs")
+    check(read_png(os.path.join(rec, "reconstructions.png")).shape == (3 * 128, 4 * 128), "AU4: the grid")
+    for name in ("generated", "real", "reconstructed"):
+        sr, wav = wavfile.read(os.path.join(rec, f"{name}.wav"))
+        check(sr == 8000 and wav.dtype == np.int16 and np.abs(wav).max() == 32767, f"AU4: {name}.wav")
+    cf_dir = os.path.join(work, "cf")
+    text = cli("audiomnist_cf_eval", "audiomnist_cf_eval", *cases, "--out-dir", cf_dir)
+    mats = {m: np.load(os.path.join(cf_dir, f), allow_pickle=True) for m, f in
+            (("bigan", "bigan_cf_metric_mat.npy"), ("bigan_int", "bigan_int_metric_mat.npy"))}
+    for m, mat in mats.items():
+        # one validation clip a (subject, digit): each cell holds the nine of other digits
+        check(mat.shape == (60, 10, 9) and np.isfinite(mat.astype(float)).all(),
+              f"AU4: the {m} ratio matrix {mat.shape}")
+    ratios = {m: float(v) for m, v in re.findall(r"(\w+): mean ratio ([0-9.]+)", text)}
+    text = cli("audiomnist_cf_classifier_metric", "audiomnist_cf_classifier_metric", *cases)
+    identity = {m: float(v) for m, v in re.findall(r"(\w+): subject-identity accuracy after digit CF = ([0-9.]+)",
+                                                    text)}
+    check(set(identity) == {"bigan", "bigan_int"}, f"AU4: identity accuracies {identity}")
+    rows_per_digit = n_val - n_val // 10  # the validation clips of the nine other digits
+    expect = {  # kernel launches each CLI must make, from the data's counts
+        ("fused_encoder", "audiomnist_bigan_score"): -(-n_val // AU_BATCH),
+        ("fused_dense", "audiomnist_bigan_score"): -(-n_val // AU_BATCH) * 4,
+        ("fused_dense", "audiomnist_generator_score"): 2 * 4,
+        ("fused_encoder", "test_audio_gan"): 1,
+        ("fused_encoder", "audio_mnist_reconstruction"): 1,
+        ("fused_encoder", "audiomnist_cf_eval"): 10 * -(-rows_per_digit // 16),
+        ("fused_encoder", "audiomnist_cf_classifier_metric"): 10 * -(-rows_per_digit // 256),
+        ("fused_dense", "audiomnist_cf_classifier_metric"): 2 * 10 * -(-rows_per_digit // 256),
+    }
+    for (kernel, label), count in expect.items():
+        check(launches[kernel][label] == count, f"AU4: {label}: {launches[kernel][label]} {kernel} launches, "
+                                                f"not {count}")
+
+    # ------------------------------------ AU5. the kernel at cf_eval's chunk
+    model, stats, _ = load_audio_bigan_model(os.path.join(models, "audio-mnist-bigan.tar"), dev)
+    xv, av, _ = validation_images(data, stats, dev)
+    a16 = {k: torch.from_numpy(v[:16]).to(dev) for k, v in av.items()}
+    cf_line = trunk_at_training_shape("audio trunk at batch 16", model.encoder, xv[:16], a16, plan,
+                                      args.seed + 74, dev, peak, card, key="kernel_at_cf_eval_shape")
+    lines.append(cf_line)
+    # every shape the AU CLIs gave either kernel, on the inputs they gave it
+    shapes = check_seen_launches(seen, plan)
+    want = {("fused_encoder", "bf16", AU_BATCH)} | {
+        (kernel, "f32", b) for kernel in ("fused_encoder", "fused_dense")
+        for b in (AU_BATCH, n_val % AU_BATCH, 256, rows_per_digit % 256)} | {
+        ("fused_encoder", "f32", b) for b in (16, rows_per_digit % 16)} | {("fused_dense", "f32", 10)}
+    got = {(kernel, tag, shape[0]) for kernel, tag, shape in seen}
+    check(want <= got, f"AU5: no launch at {sorted(want - got)}")
+    print(f"AU5: {len(shapes)} launch shapes of the AU CLIs held against the plain versions")
+    lines.append({"launch_shapes": "AU", "checked": shapes, "card": card})
+    cf_runs = ("audiomnist_cf_eval",)
+    cf_row = row("fused_encoder:audio_cf_eval", F32, "imagecfgen_torch/csrc/fused_encoder.cu",
+                 "imagecfgen_tpu/ops/pallas/fused_encoder.py:127", launches["fused_encoder"]["audiomnist_cf_eval"],
+                 cf_line["max_abs_err"], cf_line["ms"], cf_line["plain_ms"], cf_line["library_ms"],
+                 cf_line["flops"], cf_line["bytes"], peak, card, batch=16, device_ms=cf_line["device_ms"],
+                 library_device_ms=cf_line["library_device_ms"],
+                 cli_launches={r: launches["fused_encoder"][r] for r in cf_runs},
+                 train_launches=None, train_steps=None)
+    bf16_runs = [r for r in launches["fused_encoder"] if "bf16" in r or "bfloat16" in r]
+    bf16_steps = launches["fused_encoder"]["train_audio_mnist_bigan --compute-dtype bfloat16"]
+    train_row.update(launches=bf16_steps, cli_launches={r: launches["fused_encoder"][r] for r in bf16_runs},
+                     train_launches=bf16_steps, train_steps=steps)
+    lines.append({"cli_seconds": secs, "phase": "AU", "cf_digit_accuracy": cf_acc,
+                  "generated_digit_accuracy": gen_acc, "mean_ratio": ratios, "identity_accuracy": identity,
+                  "card": card})
+    del model, xv
+    return launches, lines, [cf_row, train_row]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1915,17 +2360,26 @@ def main(argv=None) -> int:
         cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
         m_launches, m_lines = morpho_phases(args, dev, card, peak, tmp)
         x_launches, x_lines, b1_row = explainer_phases(args, dev, card, peak, tmp)
+        au_launches, au_lines, au_rows = audio_cli_phases(args, dev, card, peak, tmp)
     for more in (m_launches, x_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += m_lines + x_lines
-    for kernel in kernels:  # the CLIs run float32 MNIST models: the f32 MNIST rows
+    cli_lines += m_lines + x_lines + au_lines
+    for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)
+        if kernel["name"] == "fused_encoder:audio_mnist":  # the float32 audio CLIs' trunk at any batch
+            kernel["cli_launches"] = {r: n for r, n in au_launches["fused_encoder"].items()
+                                      if "bf16" not in r and "bfloat16" not in r}
+        elif kernel["name"] == "fused_dense":  # the audio classifier's head in every audio CLI
+            kernel["cli_launches"] = {**kernel["cli_launches"], **au_launches["fused_dense"]}
     check(sum(cli_launches["fused_encoder"].values()) > 0, "the CLIs did not reach the fused_encoder kernel")
     check(b1_row["launches"] > 0 and all(n > 0 for n in b1_row["cli_launches"].values()),
           "an explainer CLI did not reach the fused_encoder kernel")
-    kernels.append(b1_row)
+    for k in ("fused_encoder", "fused_dense"):
+        check(sum(au_launches[k].values()) > 0, f"the audio CLIs did not reach the {k} kernel")
+    check(all(r["launches"] > 0 for r in au_rows), "an audio kernel row's path did not reach its kernel")
+    kernels += [b1_row, *au_rows]
     for line in engine_lines + score_lines + train_lines + cli_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))

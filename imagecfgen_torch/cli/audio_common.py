@@ -1,0 +1,177 @@
+"""What the port's AudioMNIST CLIs share: the dataset, the training arrays and
+the artifacts (port of ``imagecfgen_tpu/cli/audio_common.py``).
+
+Artifacts keep the JAX package's names:
+
+- ``audio-mnist-bigan.tar``: the GAN trainer's state, the spectrogram
+  statistics and the vocabularies (in the meta);
+- ``audio-mnist-attribute-scm.tar``: the attribute SCM;
+- ``audio-mnist-{attr}-clf.tar``: an attribute classifier and the
+  spectrogram statistics it was trained on.
+
+The port writes its own files (magic ``ICFP``) and reads both kinds, told
+apart by their magic: a model directory the JAX CLIs wrote (magic ``ICFT``)
+is carried across by ``core.convert``.
+
+Without the AudioMNIST zip the CLIs warn and run on the synthetic stand-in
+(``data/audio_mnist.py``), as the JAX package's do: that is data, not a
+device, and nothing else falls back.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import checkpoint_format, load_checkpoint, load_train_state, save_train_state
+from ..core.convert import (
+    audio_scm_from_jax_state_dict,
+    classifier_params_from_jax,
+    gan_state_from_jax,
+    vae_params_from_jax,
+)
+from ..data.audio_mnist import AudioMNISTData
+from ..device import DeviceLike, resolve_device
+from ..models import bigan as bigan_configs
+from ..models import classifier as classifier_configs
+from ..models.bigan import BiGAN
+from ..models.classifier import CNNClassifier
+from ..models.vae import ConditionalVAE, audio_mnist_vae_config
+from ..ops.spectral import SpectStats
+from ..scm.audio_mnist import CARDINALITIES, AudioMNISTAttributeSCM
+
+def load_audio_dataset(zip_path: Optional[str], synthetic_runs: int = 4) -> AudioMNISTData:
+    """The zip when it exists, else the synthetic stand-in (with a warning
+    when a path was given)."""
+    if zip_path and os.path.exists(zip_path):
+        return AudioMNISTData(path_to_zip=zip_path)
+    if zip_path:
+        print(f"warning: {zip_path} not found; using the synthetic AudioMNIST stand-in")
+    return AudioMNISTData(path_to_zip=None, synthetic_runs=synthetic_runs)
+
+
+def prepare_training_arrays(data: AudioMNISTData, excluded_runs=None, device: DeviceLike = None
+                            ) -> Tuple[torch.Tensor, Dict[str, np.ndarray], SpectStats]:
+    """(images ``(N, 128, 128, 1)`` in [-1, 1] on ``device``, the attributes'
+    one-hots, the statistics) of the training rows; by default the
+    dataset's validation runs are left out."""
+    if excluded_runs is None:
+        excluded_runs = data.training_excluded_runs
+    spects, attrs, _ = data.all_spectrograms(excluded_runs=excluded_runs, device=device)
+    stats = SpectStats.compute(spects)
+    return stats.spect_to_img(spects)[..., None], attrs, stats
+
+
+def validation_images(data: AudioMNISTData, stats: SpectStats, device: DeviceLike = None):
+    """(images ``(N, 128, 128, 1)`` on ``device``, one-hots, row indices) of
+    the validation runs, normalised with ``stats``."""
+    spects, attrs, idx = data.all_spectrograms(excluded_runs=data.validation_excluded_runs,
+                                               device=device)
+    return stats.to(spects.device).spect_to_img(spects)[..., None], attrs, idx
+
+
+def _stats_tensors(stats: SpectStats) -> Dict[str, torch.Tensor]:
+    return {"spect_mean": stats.mean.detach().cpu(), "spect_std": stats.std.detach().cpu()}
+
+
+def _stats_of(tree: Mapping, device: torch.device) -> SpectStats:
+    return SpectStats(torch.as_tensor(tree["spect_mean"]).to(device),
+                      torch.as_tensor(tree["spect_std"]).to(device))
+
+
+def _vocab_meta(data: AudioMNISTData) -> Dict:
+    out = {k: list(map(str, v.categories)) for k, v in data.vocabs.items()}
+    out["age_edges"] = [float(e) for e in data.age_binner.edges]
+    return out
+
+
+# ------------------------------------------------------------------ BiGAN
+
+
+def save_audio_bigan(path: str, state: Mapping, stats: SpectStats, data: AudioMNISTData,
+                     meta: Optional[Dict] = None) -> None:
+    """A ``GANTrainer.state_dict()`` and the statistics."""
+    save_train_state(path, {"trainer": dict(state), **_stats_tensors(stats)},
+                     meta={"kind": "bigan-audio-mnist", "vocabs": _vocab_meta(data),
+                           "carries_rng": state.get("rng") is not None, **(meta or {})})
+
+
+def load_audio_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, SpectStats, Dict]:
+    """``(trainer state, statistics on device, meta)`` of either kind of
+    file, the state in ``GANTrainer.state_dict()``'s form (from a JAX file:
+    no generator)."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        return payload["trainer"], _stats_of(payload, device), meta
+    tree, meta = load_checkpoint(path)
+    return gan_state_from_jax(tree), _stats_of(tree, device), meta
+
+
+def load_audio_bigan_model(path: str, device: DeviceLike = None) -> Tuple[BiGAN, SpectStats, Dict]:
+    """``(the BiGAN in eval mode, statistics, meta)`` of either kind of
+    ``audio-mnist-bigan.tar``, at the ``d`` its meta names."""
+    from .common import bigan_from_state
+
+    state, stats, meta = load_audio_bigan(path, device)
+    cfg = bigan_configs.audio_mnist_bigan_config(d=meta.get("d", 64))
+    return bigan_from_state(state, cfg, stats.mean.device).eval(), stats, meta
+
+
+# ------------------------------------------------------------------ SCM
+
+
+def save_audio_scm(path: str, scm: AudioMNISTAttributeSCM) -> None:
+    save_train_state(path, scm.state_dict(), meta={"kind": "attribute-scm-audio-mnist"})
+
+
+def load_audio_scm(path: str, device: DeviceLike = None) -> AudioMNISTAttributeSCM:
+    if checkpoint_format(path) == "torch":
+        return AudioMNISTAttributeSCM.from_state_dict(load_train_state(path, device)[0], device)
+    return audio_scm_from_jax_state_dict(load_checkpoint(path)[0], device)
+
+
+# ------------------------------------------------------------ classifier
+
+
+def save_audio_classifier(path: str, state: Mapping, stats: SpectStats, meta: Dict) -> None:
+    """A ``SupervisedTrainer.state_dict()`` and the statistics it trained
+    on; ``meta`` names the attribute, the classes and the width."""
+    save_train_state(path, {**dict(state), **_stats_tensors(stats)},
+                     meta={"kind": "audio-mnist-clf", **meta})
+
+
+def load_audio_classifier(path: str, n_classes: int, device: DeviceLike = None
+                          ) -> Tuple[CNNClassifier, SpectStats, Dict]:
+    """``(the classifier in eval mode, its statistics, meta)`` of either
+    kind of file, at the width its meta names."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        cfg = classifier_configs.audio_mnist_classifier_config(n_classes, width=meta.get("width", 1.0))
+        model = CNNClassifier(cfg, device)
+        model.load_state_dict(payload["module"])
+        return model.eval(), _stats_of(payload, device), meta
+    tree, meta = load_checkpoint(path)
+    cfg = classifier_configs.audio_mnist_classifier_config(n_classes, width=meta.get("width", 1.0))
+    return classifier_params_from_jax(tree["params"], cfg, device).eval(), _stats_of(tree, device), meta
+
+
+# ------------------------------------------------------------------ VAE
+
+
+def load_audio_vae(path: str, device: DeviceLike = None) -> ConditionalVAE:
+    """The audio VAE of a file the JAX package's ``train_audio_mnist_vae``
+    wrote (its ``{"params": {"encoder", "decoder"}}`` tree, ``d`` in the
+    meta), in eval mode."""
+    tree, meta = load_checkpoint(path)
+    cfg = audio_mnist_vae_config(d=meta.get("d", 64))
+    return vae_params_from_jax(tree["params"], cfg, device).eval()
+
+
+def one_hots(codes: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Integer codes ``(B,)`` or ``(B, 1)`` -> the models' float one-hots."""
+    return {k: torch.nn.functional.one_hot(codes[k].reshape(-1).long(), n).float()
+            for k, n in CARDINALITIES.items()}

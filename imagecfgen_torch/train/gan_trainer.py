@@ -41,7 +41,16 @@ The JAX package's fourth mode, ``flat_adam``, is no option here: the port's
 
 Every draw of a step (``z`` and the dropout masks of its D forwards) is
 injectable, so that a test can hand this trainer and the JAX one the same
-numbers. Training is float32 (``compute_dtype=torch.float32``).
+numbers.
+
+The model's ``compute_dtype`` (float32 or bfloat16) sets the type of the E,
+G and D forwards, with the JAX package's semantics: the parameters and both
+Adam states stay float32 (``mu`` in ``mu_dtype``), the forwards compute in
+the compute type from cast copies, E's codes, G's images and D's logits come
+back as float32, and ``bce_logits`` runs in float32. In bfloat16 the
+recompute sends the trunk through ``fused_encoder`` in bfloat16 after every
+Adam step; its weight copies (``ops.tensor_core.cast_cached``) are keyed on
+each parameter's version counter, which the in-place Adam update moves.
 """
 from __future__ import annotations
 
@@ -104,8 +113,8 @@ class GANTrainer:
     def __init__(self, model: BiGAN, tcfg: GANTrainConfig, device: DeviceLike = None,
                  seed: int = 0):
         self.device = resolve_device(device)
-        if model.cfg.compute_dtype != torch.float32:
-            raise ValueError(f"training is float32; the config computes in {model.cfg.compute_dtype}")
+        if model.cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"training computes in float32 or bfloat16, not {model.cfg.compute_dtype}")
         self.model = model.to(self.device)
         self.tcfg = tcfg
         self.params_eg = [*model.encoder.parameters(), *model.generator.parameters()]

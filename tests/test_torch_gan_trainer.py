@@ -300,9 +300,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GANTrainer(model, GANTrainConfig())
     assert GANTrainer(model, GANTrainConfig(), device="cpu").device.type == "cpu"
-    with pytest.raises(ValueError, match="float32"):
-        GANTrainer(tbigan.BiGAN(tbigan.mnist_bigan_config(32, torch.bfloat16), "cpu"),
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        GANTrainer(tbigan.BiGAN(tbigan.mnist_bigan_config(32, torch.float16), "cpu"),
                    GANTrainConfig(), device="cpu")
+    bf16 = GANTrainer(tbigan.BiGAN(tbigan.mnist_bigan_config(32, torch.bfloat16), "cpu"),
+                      GANTrainConfig(), device="cpu")
+    assert {p.dtype for p in bf16.model.parameters()} == {torch.float32}
 
 
 @pytest.mark.parametrize("target", [0, 1])

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``imagecfgen_torch``, and not
 ``chip_smoke.py``, imports JAX, flax, optax, msgpack or the JAX package, nor
-matplotlib, PIL, pandas or tqdm (the machine with the card has none of
-them); and its entry points run on the card unless asked for the CPU."""
+matplotlib, PIL, pandas, tqdm or torchaudio (the machine with the card has
+none of them); and its entry points run on the card unless asked for the
+CPU."""
 import ast
 import subprocess
 import sys
@@ -12,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "imagecfgen_tpu", "matplotlib", "PIL",
-          "pandas", "tqdm")
+          "pandas", "tqdm", "torchaudio")
 SOURCES = sorted((REPO / "imagecfgen_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -66,6 +67,35 @@ def test_explainer_slice_without_device_raises_when_no_gpu(monkeypatch, entry, t
             EncoderFinetuner(model, FinetuneConfig())
         else:
             mnist_cf_explain.main(["--data-dir", str(tmp_path), "--model-dir", str(tmp_path)])
+
+
+def test_sources_cover_the_audio_slice():
+    """Pin that the glob reaches the AudioMNIST data path (STFT, statistics,
+    resampling, the dataset, the CLIs' shared module) and its ten CLIs."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    clis = ("audio_common", "train_audio_mnist_attribute_scm", "train_audio_mnist_clf",
+            "train_audio_mnist_bigan", "audiomnist_bigan_score", "audiomnist_generator_score",
+            "test_audio_gan", "audiomnist_generate", "audio_mnist_reconstruction", "audiomnist_cf_eval",
+            "audiomnist_cf_classifier_metric")
+    assert {f"imagecfgen_torch/cli/{m}.py" for m in clis} <= names
+    assert {"imagecfgen_torch/ops/stft.py", "imagecfgen_torch/ops/spectral.py",
+            "imagecfgen_torch/ops/resample.py", "imagecfgen_torch/data/audio_mnist.py"} <= names
+
+
+@pytest.mark.parametrize("entry", ["all_spectrograms", "GANTrainer_bf16"])
+def test_audio_slice_entry_points_raise_when_no_gpu(monkeypatch, entry):
+    from imagecfgen_torch.data.audio_mnist import AudioMNISTData
+    from imagecfgen_torch.models.bigan import BiGAN, audio_mnist_bigan_config
+    from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    model = BiGAN(audio_mnist_bigan_config(2, 32, torch.bfloat16), "cpu") if entry != "all_spectrograms" else None
+    data = AudioMNISTData(None, synthetic_runs=1) if entry == "all_spectrograms" else None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "all_spectrograms":
+            data.all_spectrograms()
+        else:
+            GANTrainer(model, GANTrainConfig())
 
 
 def test_sources_cover_the_cli_slice():
