@@ -173,7 +173,9 @@ X3. ``finetune_mnist_bigan`` for one epoch with ``--metric mse`` and
 and for the AudioMNIST pipeline through the port's own entry points, at full
 width (``audio_mnist_bigan_config(d=64)``, ``audio_mnist_classifier_config(
 width=1.0)``) on the synthetic stand-in (60 subjects x 10 digits x 4 runs:
-2,400 clips, 1,800 training and 600 validation):
+2,400 clips, 1,800 training and 600 validation), synthesised once and
+copied for each CLI of the AU, AV, G and P1 phases (``shared_stand_in``; AU1
+times a synthesis):
 
 AU1. the spectrograms of all 2,400 clips on the card, (128, 128) each:
      shape, finiteness, the power held against the plain framing +
@@ -215,12 +217,51 @@ AU5. ``fused_encoder`` at the shape ``audiomnist_cf_eval`` gives it,
      call for required among them (a ``launch_shapes`` line). Copying those
      inputs adds to the seconds of the CLI run that first launches a shape.
 
+and for the last MNIST and AudioMNIST CLIs and the repaired float32 sums:
+
+F1. the four MNIST figure CLIs on C1's dataset and C2's and M3's models:
+    ``display_thickness`` (the kernel at (8, 28, 28, 5)), ``causal_graph_cf``
+    (at (40, 28, 28, 5)), ``uncertainty_evolution`` and ``cf_automatic_mix``
+    on the VAE and on the BiGAN (at (1, 28, 28, 5)): each PNG read back with
+    ``read_png`` at its size and not blank, one ``fused_encoder`` launch each,
+    the kernel held against its plain version and float64 at every shape
+    they launch (AU5's recording shim);
+AV1. ``train_audio_mnist_vae`` at d = 64 for one epoch, then ``--resume`` for
+     a second, against an uninterrupted two-epoch run, bit for bit (cuDNN's
+     deterministic algorithms); 0 ``fused_encoder`` launches (E needs a
+     gradient); steps/s, and kernels a step and the idle share of a like
+     trainer;
+AV2. ``audiomnist_vae_score`` (``fused_encoder`` once a batch at 128 and
+     the last 88, ``fused_dense`` once a round) and
+     ``audiomnist_vae_generator_score`` (``--n 512``: ``fused_dense`` at 256)
+     on AV1's VAE and AU2's SCM and classifier; ``fused_encoder`` at
+     (128, 128, 128, 7) on the trained VAE trunk and fan-in weights, timed
+     (the ``fused_encoder:audio_vae`` row); then
+     ``finetune_audio_mnist_bigan`` for one epoch on AU2's BiGAN: 0 kernel
+     launches, every tensor of E moved, G and D bit for bit unchanged; both
+     kernels held at every shape these CLIs launch;
+G1. ``train_audio_gan`` at d = 64, batch 64, one epoch in ``--loss-mode gan``
+    and ``wgan`` (every parameter of G and D moved, but for D's output bias
+    under the Wasserstein loss, which it does not enter; no kernel launched), the
+    wgan run then ``--resume``d for a second epoch against an uninterrupted
+    two-epoch run, bit for bit (cuDNN's deterministic algorithms);
+    steps/s, and kernels a step and the idle share of a like trainer;
+P1. the float32 sums against float64 (``tools/trunk_precision.py``): AU2's
+    trained trunk at B = 256, whole (within a quarter of the kernel's gate)
+    and each layer alone (its mean signed error a tenth or less of the same
+    layer's with one tensor-core sum over its K, as recorded in
+    ``P1_UNPROMOTED_LEAN``), ``fused_dense`` on
+    U(0, 1) products at K = 256 ... 16,384 (|mean| <= 2.1e-6 at 16,384), and
+    the ESRF encoder's layers 6-8 at d = 64 and batch 2 (K = 25,600, 51,200
+    and 102,400; within a quarter of their gates), with the peak of device
+    memory and the bytes of the packed hi/lo weights.
+
 The ``kernels`` line lists every kernel row (``launches``: the count of the
 row's own path, read around it alone: the serving path's, the explainer
 CLIs' for ``fused_encoder:b1`` at (1, 28, 28, 5), ``audiomnist_cf_eval``'s
-for ``fused_encoder:audio_cf_eval``, and the bf16 training CLI's for
+for ``fused_encoder:audio_cf_eval``, the bf16 training CLI's for
 ``fused_encoder:audio_train_bf16``, since no serving CLI runs the kernel in
-bf16; ``train_launches`` over ``train_steps``: the training path's;
+bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``; ``train_launches`` over ``train_steps``: the training path's;
 ``cli_launches``: each CLI run's at the row's shape, C, M, X and AU phases;
 the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
 CLIs' at every batch); the last line of output
@@ -568,6 +609,21 @@ def layer_times(name: str, pairs, conv_ops, feats, dtype):
 
 def seeded(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms inside, for runs compared bit for
+    bit; both settings as they were afterwards."""
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
 
 
 def same_tree(a, b, path: str) -> None:
@@ -970,15 +1026,9 @@ def training_phases(args, dev, card, peak):
         print(f"T6 checkpoint: {size / 2**20:.1f} MiB saved and loaded in {time.perf_counter() - t0:.2f} s")
     del state, loaded
     check(other.step == tr.step, "restored step")
-    cudnn_det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:  # the same kernels in the same order on both sides
+    with deterministic():  # the same kernels in the same order on both sides
         ma, mb = tr.train_step(batch), other.train_step(batch)
         torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = cudnn_det
     same_tree({k: ma[k] for k in METRICS}, {k: mb[k] for k in METRICS}, "T6 metrics after the resumed step")
     sa, sb = tr.state_dict(), other.state_dict()
     same_tree(sa, sb, "T6 state after the resumed step")
@@ -1816,6 +1866,34 @@ AU_D, AU_WIDTH, AU_RUNS, AU_BATCH = 64, 1.0, 4, 128
 AU_GL_CLIPS = 8  # clips of AU1's Griffin-Lim round trip
 
 
+@contextlib.contextmanager
+def shared_stand_in():
+    """Inside, ``cli.audio_common.load_audio_dataset`` hands every call
+    without a zip a copy of one synthesis of the AudioMNIST stand-in, made at
+    the first call: the data is set-up, made once (AU1 times a synthesis of
+    its own), not the CLIs' work; a zip that exists is read as before."""
+    import copy
+
+    from imagecfgen_torch.cli import audio_common
+
+    real, made = audio_common.load_audio_dataset, {}
+
+    def load(zip_path, synthetic_runs: int = 4):
+        if zip_path and os.path.exists(zip_path):
+            return real(zip_path, synthetic_runs)
+        if zip_path:
+            print(f"warning: {zip_path} not found; using the synthetic AudioMNIST stand-in")
+        if synthetic_runs not in made:
+            made[synthetic_runs] = real(None, synthetic_runs)
+        return copy.deepcopy(made[synthetic_runs])
+
+    audio_common.load_audio_dataset = load
+    try:
+        yield
+    finally:
+        audio_common.load_audio_dataset = real
+
+
 def dtype_name(dtype) -> str:
     return "float32" if dtype == F32 else "bfloat16"
 
@@ -2093,19 +2171,13 @@ def audio_cli_phases(args, dev, card, peak, tmp: str):
     # the resumed bf16 run's next steps, bit for bit (cuDNN's deterministic algorithms, as T6)
     runs = {r: os.path.join(tmp, f"audio-bf16-{r}") for r in ("split", "straight")}
     bf = (*gan, "--compute-dtype", "bfloat16")
-    cudnn_det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with deterministic():
         cli("train_audio_mnist_bigan bf16 epoch 1", "train_audio_mnist_bigan", "--output-path", runs["split"],
             "--steps", 1, *bf)
         resumed = cli("train_audio_mnist_bigan bf16 --resume", "train_audio_mnist_bigan", "--output-path",
                       runs["split"], "--steps", 2, "--resume", *bf)
         cli("train_audio_mnist_bigan bf16 epochs 1-2", "train_audio_mnist_bigan", "--output-path",
             runs["straight"], "--steps", 2, *bf)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = cudnn_det
     check(f"at epoch 1 (step {steps})" in resumed, "AU3: the bf16 --resume did not start at its step")
     got, _, _ = load_audio_bigan(os.path.join(runs["split"], "audio-mnist-bigan.tar"), dev)
     want, _, _ = load_audio_bigan(os.path.join(runs["straight"], "audio-mnist-bigan.tar"), dev)
@@ -2201,6 +2273,279 @@ def audio_cli_phases(args, dev, card, peak, tmp: str):
     return launches, lines, [cf_row, train_row]
 
 
+# P1: the float32 drift's bounds. Against float64 the whole trained audio
+# trunk at B = 256 may use a quarter of the kernel's gate; each layer's mean
+# signed error must be a tenth or less of what the same layer read when the
+# kernel kept one tensor-core sum over its whole K (P1_UNPROMOTED_LEAN, layers
+# 1-6 of this trunk at B = 256 relative to their tops, the smallest of the
+# readings PERF.md §6 records); fused_dense on U(0, 1) products at K = 16,384
+# a tenth of that kernel's -2.1e-5; the ESRF layers a quarter of their gates.
+P1_GATE_SHARE, P1_LAYER_RATIO, P1_DENSE_BOUND = 0.25, 10.0, 2.1e-6
+P1_UNPROMOTED_LEAN = (-8.5e-8, -1.0e-6, -3.3e-6, -7.5e-6, -1.0e-6, -4.0e-6)
+P1_BATCH = 256
+
+
+def precision_phase(args, dev, card, models: str):
+    """Phase P1: the repaired float32 sums of both kernels against float64,
+    through ``tools/trunk_precision.py`` (AU2's trained trunk at B = 256,
+    whole and each layer alone; ``fused_dense`` on U(0, 1); the ESRF
+    encoder's layers 6-8 at d = 64, with the peak of device memory and the
+    packed weights' bytes). Returns the lines."""
+    from imagecfgen_torch.cli.audio_common import load_audio_bigan_model, load_audio_dataset, validation_images
+    from imagecfgen_torch.tools.trunk_precision import dense_positive, esrf_layers, trunk_layers
+
+    model, stats, _ = load_audio_bigan_model(os.path.join(models, "audio-mnist-bigan.tar"), dev)
+    xv, av, _ = validation_images(load_audio_dataset(None, synthetic_runs=AU_RUNS), stats, dev)
+    with torch.no_grad():
+        a = {k: torch.from_numpy(v[:P1_BATCH]).to(dev) for k, v in av.items()}
+        feats = model.encoder.attr_channels(xv[:P1_BATCH], a).contiguous()
+        layers = trunk_layers(model.encoder, feats, card)
+        dense = dense_positive(dev, args.seed, card)
+        esrf = esrf_layers(dev, args.seed, card)
+    whole = layers[-1]
+    gate = GATE[F32] * max(1.0, whole["max_abs_plain"])
+    print(f"P1 audio trunk at B = {P1_BATCH}: max|kernel - f64| = {whole['max_abs_err_f64']:.3e} "
+          f"(bound {P1_GATE_SHARE * gate:.3e}, a quarter of the gate {gate:.3e})")
+    check(whole["max_abs_err_f64"] <= P1_GATE_SHARE * gate, "P1: the trunk's float32 sums still drift")
+    check(len(layers) == len(P1_UNPROMOTED_LEAN) + 1, f"P1: {len(layers) - 1} trunk layers")
+    for p, u in zip(layers[:-1], P1_UNPROMOTED_LEAN):
+        ratio = abs(u) / max(abs(p["kernel_toward_zero"]), 1e-30)
+        print(f"P1 layer {p['trunk_layer']} (K {p['k']}, {p['plan']}): mean signed error "
+              f"{p['kernel_toward_zero']:.3e}, one sum over K {u:.1e} ({ratio:.1f}x), "
+              f"plain {p['plain_toward_zero']:.3e}")
+        check(ratio >= P1_LAYER_RATIO, f"P1: layer {p['trunk_layer']} leans toward zero {ratio:.1f}x less only")
+    top = dense[-1]
+    print(f"P1 fused_dense on U(0, 1) at K = {top['dense_positive']}: mean signed error "
+          f"{top['kernel_toward_zero']:.3e} (bound {P1_DENSE_BOUND:.1e})")
+    check(abs(top["kernel_toward_zero"]) <= P1_DENSE_BOUND, "P1: fused_dense's float32 sums still drift")
+    for e in esrf:
+        print(f"P1 ESRF layer {e['esrf_layer']} (K {e['k']}, {e['plan']}): max|kernel - plain| "
+              f"{e['max_abs_err']:.3e} of a {e['gate']:.3e} gate; peak memory {e['max_memory_allocated'] / 2**20:.0f} "
+              f"MiB, weights {e['weights_bytes'] / 2**20:.0f} MiB, packed hi/lo {e['packed_bytes'] / 2**20:.0f} MiB")
+        check(e["max_abs_err"] <= P1_GATE_SHARE * e["gate"], f"P1: ESRF layer {e['esrf_layer']} beyond its bound")
+    return [{"precision": "P1", "trunk": layers, "dense_positive": dense,
+             "esrf": esrf, "card": card}]
+
+
+def figure_phases(args, dev, card, tmp: str):
+    """Phase F1: the four MNIST figure CLIs on C1's dataset and C2's and
+    M3's models, in ``tmp/figures``: each PNG read back at its size and not
+    blank, one ``fused_encoder`` launch each, the kernel held at every shape
+    they launch it at. Returns ({kernel: {CLI run: launches}}, lines)."""
+    from imagecfgen_torch.cli.common import read_png
+    from imagecfgen_torch.models.bigan import mnist_bigan_config
+
+    launches, secs, seen = {"fused_encoder": {}, "fused_dense": {}}, {}, {}
+    run = cli_runner(dev, launches, secs, "F")
+    data, models, out = os.path.join(tmp, "data"), os.path.join(tmp, "models"), os.path.join(tmp, "figures")
+    src = ("--data-dir", data, "--model-dir", models)
+    figures = {  # label: (CLI, flags, the PNG's shape)
+        "display_thickness": ("display_thickness", (), (28, 8 * 28)),
+        "causal_graph_cf": ("causal_graph_cf", (), (96, 4 * 160 + 3 * 4, 3)),
+        "uncertainty_evolution": ("uncertainty_evolution", (), (96, 2 * 160 + 3 * 84 + 4 * 4, 3)),
+        "cf_automatic_mix --model vae": ("cf_automatic_mix", ("--model", "vae"), (96, 3 * 84 + 160 + 3 * 4, 3)),
+        "cf_automatic_mix --model bigan": ("cf_automatic_mix", ("--model", "bigan"), (96, 3 * 84 + 160 + 3 * 4, 3)),
+    }
+    for label, (name, flags, shape) in figures.items():
+        png = os.path.join(out, label.replace(" --model ", "-") + ".png")
+        with recording_launches(seen, label):
+            run(label, name, *src, *flags, "--output", png)
+        pix = read_png(png)
+        check(pix.shape == shape and np.unique(pix).size > 1, f"F1: {png} is {pix.shape}, {np.unique(pix).size} "
+                                                              f"values, not a {shape} figure")
+        check(launches["fused_encoder"][label] == 1, f"F1: {label}: {launches['fused_encoder'][label]} "
+                                                     "fused_encoder launches, not one")
+    shapes = check_seen_launches(seen, mnist_bigan_config().enc_plan)
+    got = {(kernel, tag, shape[0]) for kernel, tag, shape in seen}
+    want = {("fused_encoder", "f32", b) for b in (8, 40, 1)}
+    check(want == got, f"F1: launches at {sorted(got)}, not {sorted(want)}")
+    return launches, [{"launch_shapes": "F1", "checked": shapes, "card": card},
+                      {"cli_seconds": secs, "phase": "F", "card": card}]
+
+
+G1_D, G1_BATCH = 64, 64
+G1_WGAN_FIXED = "D.trunk.dense_0_bias"  # its gradient is 0 under the Wasserstein loss
+
+
+def audio_vae_gan_phases(args, dev, card, peak, tmp: str):
+    """Phases AV1, AV2 and G1: the audio VAE's training CLI (one epoch, then
+    ``--resume`` against an uninterrupted two-epoch run), its two scores, the
+    BiGAN fine-tune, and the unconditional GAN in both loss modes, at full
+    width on the stand-in, after AU1-AU5 and on their artifacts in
+    ``tmp/audio``. Returns ({kernel: {CLI run: launches}}, lines, the
+    ``fused_encoder:audio_vae`` row)."""
+    from imagecfgen_torch.cli.audio_common import (
+        load_audio_bigan,
+        load_audio_dataset,
+        load_audio_gan,
+        load_audio_vae_model,
+        load_audio_vae_state,
+        prepare_training_arrays,
+        validation_images,
+    )
+    from imagecfgen_torch.models.gan import UncondGANConfig
+    from imagecfgen_torch.models.vae import ConditionalVAE, audio_mnist_vae_config
+    from imagecfgen_torch.train.uncond_gan_trainer import UncondGANTrainConfig, UncondGANTrainer
+    from imagecfgen_torch.train.vae_trainer import VAETrainConfig, VAETrainer
+
+    launches, lines, secs, seen = {"fused_encoder": {}, "fused_dense": {}}, [], {}, {}
+    run = cli_runner(dev, launches, secs, "AV")
+
+    def cli(label, name, *argv):
+        with recording_launches(seen, label):
+            return run(label, name, *argv)
+
+    models = os.path.join(tmp, "audio")  # AU2's SCM, classifiers and BiGAN
+    vdir, vstraight = os.path.join(tmp, "audio-vae"), os.path.join(tmp, "audio-vae-straight")
+    data = load_audio_dataset(None, synthetic_runs=AU_RUNS)
+    x_train, a_train, _ = prepare_training_arrays(data, device=dev)
+    steps = len(x_train) // AU_BATCH
+    rows = {"image": x_train, "attrs": {k: torch.from_numpy(v).to(dev) for k, v in a_train.items()}}
+
+    # ---------------------------------------- AV1. the audio VAE's training
+    vae = ("--d", AU_D, "--batch-size", AU_BATCH)
+    with deterministic():
+        texts = [
+            cli("train_audio_mnist_vae", "train_audio_mnist_vae", "--output-path", vdir, "--steps", 1, *vae),
+            cli("train_audio_mnist_vae --resume", "train_audio_mnist_vae", "--output-path", vdir, "--steps", 2,
+                "--resume", *vae),
+            cli("train_audio_mnist_vae epochs 1-2", "train_audio_mnist_vae", "--output-path", vstraight,
+                "--steps", 2, *vae)]
+    check(f"at epoch 1 (step {steps})" in texts[1], "AV1: the VAE's --resume did not start at its step")
+    for label in ("train_audio_mnist_vae", "train_audio_mnist_vae --resume", "train_audio_mnist_vae epochs 1-2"):
+        check(launches["fused_encoder"][label] == 0, f"AV1: {label} reached fused_encoder (E needs a gradient)")
+    got, _, meta = load_audio_vae_state(os.path.join(vdir, "audio-mnist-vae.tar"), dev)
+    want, _, _ = load_audio_vae_state(os.path.join(vstraight, "audio-mnist-vae.tar"), dev)
+    check(meta["epoch"] == 2 and got["step"] == 2 * steps, f"AV1: the resumed VAE ended at step {got['step']}")
+    same_tree(got, want, "AV1 resumed VAE state")
+    neg_elbo = [float(v) for v in re.findall(r"-elbo=(\S+) ", texts[0] + texts[1])]
+    check(len(neg_elbo) == 2 and all(np.isfinite(neg_elbo)), f"AV1: -ELBO {neg_elbo}")
+    print(f"AV1 train_audio_mnist_vae --resume: epoch 2 ({steps} steps) equals the uninterrupted run's bit for bit")
+    vtr = VAETrainer(ConditionalVAE(audio_mnist_vae_config(AU_D), dev, seeded(args.seed + 80)),
+                     VAETrainConfig(batch_size=AU_BATCH, kl_weight=1.0), dev, seed=args.seed + 81)
+    prof = profile_steps(vtr.train_step, rows, AU_BATCH, f"a VAE trainer built as the CLI builds it, seed "
+                         f"{args.seed + 80}", dev)
+    lines.append({"cli_training": "train_audio_mnist_vae", "batch": AU_BATCH, "d": AU_D, "num_samples_per_step": 4,
+                  "kl_weight": 1.0, "steps_per_epoch": steps, "neg_elbo": neg_elbo,
+                  "cli_steps_per_s": steps_per_s("".join(texts)), "profile_of_a_like_trainer": prof, "card": card})
+    del vtr
+
+    # -------------------------------- AV2. the VAE's scores, the fine-tune
+    vtar = os.path.join(vdir, "audio-mnist-vae.tar")
+    n_val = len(data.split_indices(excluded_runs=data.validation_excluded_runs))
+    cf_acc = printed_score(cli("audiomnist_vae_score", "audiomnist_vae_score", "--model-dir", models,
+                               "--image-model", vtar), "vae digit cf accuracy")
+    gen_acc = printed_score(cli("audiomnist_vae_generator_score", "audiomnist_vae_generator_score",
+                                "--model-dir", models, "--image-model", vtar, "--n", 512),
+                            "vae generated digit accuracy")
+    expect = {("fused_encoder", "audiomnist_vae_score"): -(-n_val // AU_BATCH),
+              ("fused_dense", "audiomnist_vae_score"): -(-n_val // AU_BATCH) * 4,
+              ("fused_encoder", "audiomnist_vae_generator_score"): 0,
+              ("fused_dense", "audiomnist_vae_generator_score"): 2 * 4}
+    for (kernel, label), count in expect.items():
+        check(launches[kernel][label] == count, f"AV2: {label}: {launches[kernel][label]} {kernel} launches, "
+                                                f"not {count}")
+    model, stats, _ = load_audio_vae_model(vtar, dev)
+    xv, av, _ = validation_images(data, stats, dev)
+    a128 = {k: torch.from_numpy(v[:AU_BATCH]).to(dev) for k, v in av.items()}
+    vae_line = trunk_at_training_shape(f"audio VAE trunk at batch {AU_BATCH}", model.encoder, xv[:AU_BATCH], a128,
+                                       model.cfg.enc_plan, args.seed + 82, dev, peak, card,
+                                       key="kernel_at_vae_score_shape")
+    lines.append(vae_line)
+    del model, xv
+
+    work = os.path.join(tmp, "av-finetune")
+    os.makedirs(work)
+    before, _, _ = load_audio_bigan(os.path.join(models, "audio-mnist-bigan.tar"), dev)
+    with contextlib.chdir(work):
+        text = cli("finetune_audio_mnist_bigan", "finetune_audio_mnist_bigan", "--model-file",
+                   os.path.join(models, "audio-mnist-bigan.tar"), "--steps", 1, "--batch-size", AU_BATCH)
+        after, _, meta = load_audio_bigan("audio-mnist-bigan-finetuned-mse.tar", dev)
+    check(launches["fused_encoder"]["finetune_audio_mnist_bigan"] == 0,
+          "AV2: the fine-tune reached fused_encoder (E needs a gradient)")
+    still = [k for k in before["E"] if torch.equal(before["E"][k], after["E"][k])]
+    check(not still, f"AV2: the fine-tune left E's {still} unmoved")
+    for part in ("G", "D"):
+        same_tree(after[part], before[part], f"AV2 fine-tuned {part}")
+    check(meta["finetuned"] == "mse" and meta["d"] == AU_D, f"AV2: fine-tuned file meta {meta}")
+    lines.append({"cli_training": "finetune_audio_mnist_bigan --metric mse", "batch": AU_BATCH,
+                  "steps_per_epoch": steps, "cli_steps_per_s": steps_per_s(text), "card": card})
+
+    # ------------------------------------------ G1. the unconditional GAN
+    gan = ("--generator-size", G1_D, "--batch-size", G1_BATCH)
+    g_steps = len(x_train) // G1_BATCH
+    runs = {r: os.path.join(tmp, f"gan-{r}") for r in ("gan", "wgan", "wgan-straight")}
+
+    def epoch_one(mode):
+        """One epoch in ``mode``: the step and Adam counts, and every
+        parameter of G and D moved from the CLI's initial one (--seed 0)."""
+        label = f"train_audio_gan --loss-mode {mode}"
+        text = cli(label, "train_audio_gan", "--output-path", runs[mode], "--steps", 1, *gan, "--loss-mode", mode)
+        state, _, _ = load_audio_gan(os.path.join(runs[mode], f"audio-gan-{mode}.tar"), dev)
+        check(state["step"] == g_steps and state["opt_g"]["count"] == state["opt_d"]["count"] == g_steps,
+              f"G1: {label} ended at step {state['step']}")
+        fresh = UncondGANTrainer(UncondGANConfig(d=G1_D), UncondGANTrainConfig(loss_mode=mode), dev)
+        for part, module in (("G", fresh.G), ("D", fresh.D)):
+            for k, v in module.state_dict().items():
+                # the Wasserstein loss, E[D(fake)] - E[D(real)] + the penalty on
+                # D's input gradient, does not depend on D's output bias
+                fixed = mode == "wgan" and f"{part}.{k}" == G1_WGAN_FIXED
+                check(torch.equal(state[part][k], v) == fixed,
+                      f"G1: {label}: {part}.{k} {'moved' if fixed else 'did not move'}")
+        return text
+
+    g_texts = {"gan": epoch_one("gan")}
+
+    wgan = (*gan, "--loss-mode", "wgan")
+    with deterministic():
+        g_texts["wgan"] = epoch_one("wgan")
+        resumed = cli("train_audio_gan --loss-mode wgan --resume", "train_audio_gan", "--output-path", runs["wgan"],
+                      "--steps", 2, "--resume", *wgan)
+        cli("train_audio_gan --loss-mode wgan epochs 1-2", "train_audio_gan", "--output-path",
+            runs["wgan-straight"], "--steps", 2, *wgan)
+    check(f"at epoch 1 (step {g_steps})" in resumed, "G1: the wgan --resume did not start at its step")
+    got, _, _ = load_audio_gan(os.path.join(runs["wgan"], "audio-gan-wgan.tar"), dev)
+    want, _, _ = load_audio_gan(os.path.join(runs["wgan-straight"], "audio-gan-wgan.tar"), dev)
+    same_tree(got, want, "G1 resumed wgan state")
+    print(f"G1 train_audio_gan --loss-mode wgan --resume: epoch 2 ({g_steps} steps) equals the uninterrupted run's "
+          "bit for bit")
+    del got, want
+    for label in (r for r in secs if r.startswith("train_audio_gan")):
+        counts = {k: launches[k][label] for k in launches}
+        check(counts == {"fused_encoder": 0, "fused_dense": 0}, f"G1: {label} launched {counts}")
+    images = {"image": x_train, "attrs": {}}
+    for mode in ("gan", "wgan"):
+        like = UncondGANTrainer(UncondGANConfig(d=G1_D), UncondGANTrainConfig(batch_size=G1_BATCH, loss_mode=mode),
+                                dev, seed=args.seed + 83)
+        prof = profile_steps(like.train_step, images, G1_BATCH, f"a trainer built as the CLI builds "
+                             f"it, seed {args.seed + 83}", dev)
+        lines.append({"cli_training": f"train_audio_gan --loss-mode {mode}", "batch": G1_BATCH, "d": G1_D,
+                      "steps_per_epoch": g_steps, "cli_steps_per_s": steps_per_s(g_texts[mode]),
+                      "every_parameter_moved": True, "kernel_launches_per_step": 0,
+                      "profile_of_a_like_trainer": prof, "card": card})
+        del like
+    del x_train, rows
+
+    # every shape the AV CLIs gave either kernel, on the inputs they gave it
+    shapes = check_seen_launches(seen, audio_mnist_vae_config(AU_D).enc_plan)
+    want = {("fused_encoder", "f32", b) for b in (AU_BATCH, n_val % AU_BATCH)} | {
+        ("fused_dense", "f32", b) for b in (AU_BATCH, n_val % AU_BATCH, 256)}
+    got = {(kernel, tag, shape[0]) for kernel, tag, shape in seen}
+    check(want == got, f"AV: launches at {sorted(got)}, not {sorted(want)}")
+    lines.append({"launch_shapes": "AV", "checked": shapes, "card": card})
+    lines.append({"cli_seconds": secs, "phase": "AV/G", "vae_cf_digit_accuracy": cf_acc,
+                  "vae_generated_digit_accuracy": gen_acc, "card": card})
+    runs = ("audiomnist_vae_score",)
+    vae_row = row("fused_encoder:audio_vae", F32, "imagecfgen_torch/csrc/fused_encoder.cu",
+                  "imagecfgen_tpu/ops/pallas/fused_encoder.py:127", launches["fused_encoder"]["audiomnist_vae_score"],
+                  vae_line["max_abs_err"], vae_line["ms"], vae_line["plain_ms"], vae_line["library_ms"],
+                  vae_line["flops"], vae_line["bytes"], peak, card, batch=AU_BATCH, device_ms=vae_line["device_ms"],
+                  library_device_ms=vae_line["library_device_ms"],
+                  cli_launches={r: launches["fused_encoder"][r] for r in launches["fused_encoder"]},
+                  train_launches=launches["fused_encoder"]["train_audio_mnist_vae"], train_steps=steps)
+    return launches, lines, vae_row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2232,6 +2577,11 @@ def main(argv=None) -> int:
     from imagecfgen_torch.scm.mnist import MNISTAttributeSCM, build_mnist_graph
 
     # ---------------------------------------------------------- 1. set-up
+    started = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        print(f"[{time.perf_counter() - started:.1f} s] {phase}", flush=True)
+
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -2345,10 +2695,12 @@ def main(argv=None) -> int:
     del trunk, x_cfs
 
     # ------------------------------------------- A2-A4. the AudioMNIST path
+    stamp("A2-A4")
     audio_rows, score_lines = audio_phases(args, dev, card, peak)
     kernels += audio_rows
 
     # ------------------------------------------------ T1-T6. training
+    stamp("T1-T6")
     train_launches, train_lines = training_phases(args, dev, card, peak)
     for kernel in kernels:  # training is float32: the bf16 rows have no training launches
         count, steps = train_launches[kernel["name"]] if kernel["dtype"] == "f32" else (None, None)
@@ -2357,14 +2709,26 @@ def main(argv=None) -> int:
 
     # ------- C1-C4, M1-M5, X1-X3. the MNIST CLIs, the comparison, the explainers
     with tempfile.TemporaryDirectory() as tmp:
+        stamp("C1-C4")
         cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
+        stamp("M1-M5")
         m_launches, m_lines = morpho_phases(args, dev, card, peak, tmp)
+        stamp("X1-X3")
         x_launches, x_lines, b1_row = explainer_phases(args, dev, card, peak, tmp)
-        au_launches, au_lines, au_rows = audio_cli_phases(args, dev, card, peak, tmp)
-    for more in (m_launches, x_launches):
+        stamp("F1")
+        f_launches, f_lines = figure_phases(args, dev, card, tmp)
+        with shared_stand_in():
+            stamp("AU1-AU5")
+            au_launches, au_lines, au_rows = audio_cli_phases(args, dev, card, peak, tmp)
+            stamp("AV1-AV2, G1")
+            av_launches, av_lines, vae_row = audio_vae_gan_phases(args, dev, card, peak, tmp)
+            stamp("P1")
+            p_lines = precision_phase(args, dev, card, os.path.join(tmp, "audio"))
+        stamp("the end")
+    for more in (m_launches, x_launches, f_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += m_lines + x_lines + au_lines
+    cli_lines += m_lines + x_lines + au_lines + f_lines + av_lines + p_lines
     for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)
@@ -2372,14 +2736,15 @@ def main(argv=None) -> int:
             kernel["cli_launches"] = {r: n for r, n in au_launches["fused_encoder"].items()
                                       if "bf16" not in r and "bfloat16" not in r}
         elif kernel["name"] == "fused_dense":  # the audio classifier's head in every audio CLI
-            kernel["cli_launches"] = {**kernel["cli_launches"], **au_launches["fused_dense"]}
+            kernel["cli_launches"] = {**kernel["cli_launches"], **au_launches["fused_dense"],
+                                      **av_launches["fused_dense"]}
     check(sum(cli_launches["fused_encoder"].values()) > 0, "the CLIs did not reach the fused_encoder kernel")
     check(b1_row["launches"] > 0 and all(n > 0 for n in b1_row["cli_launches"].values()),
           "an explainer CLI did not reach the fused_encoder kernel")
     for k in ("fused_encoder", "fused_dense"):
         check(sum(au_launches[k].values()) > 0, f"the audio CLIs did not reach the {k} kernel")
-    check(all(r["launches"] > 0 for r in au_rows), "an audio kernel row's path did not reach its kernel")
-    kernels += [b1_row, *au_rows]
+    check(all(r["launches"] > 0 for r in (*au_rows, vae_row)), "an audio kernel row's path did not reach its kernel")
+    kernels += [b1_row, *au_rows, vae_row]
     for line in engine_lines + score_lines + train_lines + cli_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,10 @@ Artifacts keep the JAX package's names:
   statistics and the vocabularies (in the meta);
 - ``audio-mnist-attribute-scm.tar``: the attribute SCM;
 - ``audio-mnist-{attr}-clf.tar``: an attribute classifier and the
-  spectrogram statistics it was trained on.
+  spectrogram statistics it was trained on;
+- ``audio-mnist-vae.tar``: the VAE trainer's state and the statistics;
+- ``audio-gan-{gan,wgan}.tar``: the unconditional GAN trainer's state and
+  the statistics.
 
 The port writes its own files (magic ``ICFP``) and reads both kinds, told
 apart by their magic: a model directory the JAX CLIs wrote (magic ``ICFT``)
@@ -25,12 +28,20 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.checkpoint import checkpoint_format, load_checkpoint, load_train_state, save_train_state
+from ..core.checkpoint import (
+    checkpoint_format,
+    load_checkpoint,
+    load_meta,
+    load_train_state,
+    save_train_state,
+)
 from ..core.convert import (
     audio_scm_from_jax_state_dict,
     classifier_params_from_jax,
     gan_state_from_jax,
+    uncond_gan_state_from_jax,
     vae_params_from_jax,
+    vae_trainer_state_from_jax,
 )
 from ..data.audio_mnist import AudioMNISTData
 from ..device import DeviceLike, resolve_device
@@ -41,6 +52,7 @@ from ..models.classifier import CNNClassifier
 from ..models.vae import ConditionalVAE, audio_mnist_vae_config
 from ..ops.spectral import SpectStats
 from ..scm.audio_mnist import CARDINALITIES, AudioMNISTAttributeSCM
+
 
 def load_audio_dataset(zip_path: Optional[str], synthetic_runs: int = 4) -> AudioMNISTData:
     """The zip when it exists, else the synthetic stand-in (with a warning
@@ -162,13 +174,71 @@ def load_audio_classifier(path: str, n_classes: int, device: DeviceLike = None
 # ------------------------------------------------------------------ VAE
 
 
-def load_audio_vae(path: str, device: DeviceLike = None) -> ConditionalVAE:
-    """The audio VAE of a file the JAX package's ``train_audio_mnist_vae``
-    wrote (its ``{"params": {"encoder", "decoder"}}`` tree, ``d`` in the
-    meta), in eval mode."""
+def save_audio_vae(path: str, state: Mapping, stats: SpectStats, meta: Optional[Dict] = None) -> None:
+    """A ``VAETrainer.state_dict()`` and the statistics."""
+    save_train_state(path, {"trainer": dict(state), **_stats_tensors(stats)},
+                     meta={"kind": "vae-audio-mnist", "carries_rng": state.get("rng") is not None,
+                           **(meta or {})})
+
+
+def load_audio_vae_state(path: str, device: DeviceLike = None
+                         ) -> Tuple[Optional[Dict], Optional[SpectStats], Dict]:
+    """``(trainer state, statistics, meta)`` of either kind of
+    ``audio-mnist-vae.tar``, the state in ``VAETrainer.state_dict()``'s form
+    (from a JAX file: no generator). A JAX file written before its trainer
+    saved the optimiser and the noise key (``carries_rng`` unset) has no
+    state to resume (None), and one without statistics gives None for them."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        return payload["trainer"], _stats_of(payload, device), meta
     tree, meta = load_checkpoint(path)
-    cfg = audio_mnist_vae_config(d=meta.get("d", 64))
-    return vae_params_from_jax(tree["params"], cfg, device).eval()
+    state = vae_trainer_state_from_jax(tree) if meta.get("carries_rng") else None
+    return state, (_stats_of(tree, device) if "spect_mean" in tree else None), meta
+
+
+def load_audio_vae_model(path: str, device: DeviceLike = None
+                         ) -> Tuple[ConditionalVAE, Optional[SpectStats], Dict]:
+    """``(the VAE in eval mode, statistics or None, meta)`` of either kind
+    of ``audio-mnist-vae.tar``, at the ``d`` its meta names."""
+    device = resolve_device(device)
+    cfg = audio_mnist_vae_config(d=load_meta(path).get("d", 64))
+    if checkpoint_format(path) == "torch":
+        state, stats, meta = load_audio_vae_state(path, device)
+        model = ConditionalVAE(cfg, device)
+        model.load_state_dict(state["module"])
+        return model.eval(), stats, meta
+    tree, meta = load_checkpoint(path)
+    stats = _stats_of(tree, device) if "spect_mean" in tree else None
+    return vae_params_from_jax(tree["params"], cfg, device).eval(), stats, meta
+
+
+def load_audio_vae(path: str, device: DeviceLike = None) -> ConditionalVAE:
+    """The VAE alone of :func:`load_audio_vae_model`."""
+    return load_audio_vae_model(path, device)[0]
+
+
+# ------------------------------------------------------- unconditional GAN
+
+
+def save_audio_gan(path: str, state: Mapping, stats: SpectStats, loss_mode: str,
+                   meta: Optional[Dict] = None) -> None:
+    """An ``UncondGANTrainer.state_dict()`` and the statistics."""
+    save_train_state(path, {"trainer": dict(state), **_stats_tensors(stats)},
+                     meta={"kind": f"uncond-gan-{loss_mode}", "carries_rng": state.get("rng") is not None,
+                           **(meta or {})})
+
+
+def load_audio_gan(path: str, device: DeviceLike = None) -> Tuple[Dict, SpectStats, Dict]:
+    """``(trainer state, statistics, meta)`` of either kind of
+    ``audio-gan-{mode}.tar``, the state in ``UncondGANTrainer.state_dict()``'s
+    form (from a JAX file: no generator)."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        return payload["trainer"], _stats_of(payload, device), meta
+    tree, meta = load_checkpoint(path)
+    return uncond_gan_state_from_jax(tree), _stats_of(tree, device), meta
 
 
 def one_hots(codes: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -10,7 +10,10 @@ model directory that the JAX CLIs wrote (magic ``ICFT``) is carried across
 by ``core.convert`` and can be scored, or resumed, here.
 
 Image grids and scatter panels are 8-bit grayscale PNGs written with
-``zlib`` and ``struct`` (the machine with the card has no matplotlib).
+``zlib`` and ``struct`` (the machine with the card has no matplotlib); the
+figure CLIs' panels (curves with one emphasised, bars, images) are RGB
+rasters side by side in one 8-bit RGB PNG. Axes, ticks and legends are not
+drawn: the CLIs print what a reader needs beside the file.
 """
 from __future__ import annotations
 
@@ -232,6 +235,20 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
+def write_png(path: str, pix: np.ndarray) -> None:
+    """``pix``: uint8 ``(H, W)`` (grayscale) or ``(H, W, 3)`` (RGB), written
+    with filter type 0 on every row."""
+    h, w = pix.shape[:2]
+    color = 2 if pix.ndim == 3 else 0
+    raw = b"".join(b"\x00" + pix[r].tobytes() for r in range(h))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_chunk(b"IEND", b""))
+
+
 def save_grid_png(path: str, rows: Sequence, row_labels: Sequence[str], title: str = "",
                   vmin: float = -1, vmax: float = 1) -> np.ndarray:
     """Save a rows x n grid of equally sized images as an 8-bit grayscale
@@ -241,17 +258,94 @@ def save_grid_png(path: str, rows: Sequence, row_labels: Sequence[str], title: s
     grid = np.concatenate([np.concatenate([np.asarray(im, np.float32).squeeze() for im in imgs], axis=1)
                            for imgs in rows], axis=0)
     pix = np.clip(np.round((grid - vmin) / (vmax - vmin) * 255.0), 0, 255).astype(np.uint8)
-    h, w = pix.shape
-    raw = b"".join(b"\x00" + pix[r].tobytes() for r in range(h))  # filter type 0 a row
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+    write_png(path, pix)
     print(f"{path}: {title}" if title else path)
     for r, label in enumerate(row_labels):
         print(f"  row {r + 1}: {label}")
+    return pix
+
+
+PANEL = (96, 160)  # (height, width) of a curve or bar panel
+_FRAME, _CURVE, _EMPHASIS, _BAR = 0.3, (0.55, 0.55, 0.55), (1.0, 0.8, 0.2), (0.35, 0.6, 1.0)
+
+
+def _framed(size: Tuple[int, int]) -> np.ndarray:
+    """A black ``size`` RGB panel with its left and bottom edges drawn."""
+    img = np.zeros((*size, 3), np.float32)
+    img[:, 0], img[-1, :] = _FRAME, _FRAME
+    return img
+
+
+def _rows_of(v, lo: float, hi: float, h: int) -> np.ndarray:
+    """Values -> pixel rows of a panel ``h`` high, ``hi`` at the top."""
+    span = hi - lo if hi > lo else 1.0
+    return np.clip(np.round((1.0 - (np.asarray(v, np.float64) - lo) / span) * (h - 3)) + 1, 1, h - 2).astype(int)
+
+
+def curve_panel(ys, emphasis: Optional[int] = None, ylim: Optional[Tuple[float, float]] = None,
+                size: Tuple[int, int] = PANEL) -> np.ndarray:
+    """Curves ``ys`` ``(n_curves, n_points)`` over evenly spaced x as an RGB
+    panel in [0, 1]: each a gray polyline, curve ``emphasis`` drawn last,
+    two pixels thick and in colour; y over ``ylim`` (default: the finite
+    values' range), up."""
+    ys = np.atleast_2d(np.asarray(ys, np.float64))
+    h, w = size
+    finite = ys[np.isfinite(ys)]
+    lo, hi = ylim if ylim is not None else ((finite.min(), finite.max()) if finite.size else (0.0, 1.0))
+    img = _framed(size)
+    cols = np.round(np.linspace(2, w - 2, ys.shape[1])).astype(int)
+    order = [c for c in range(len(ys)) if c != emphasis] + ([emphasis] if emphasis is not None else [])
+    for c in order:
+        rows = _rows_of(np.nan_to_num(ys[c], nan=lo), lo, hi, h)
+        for (c0, r0), (c1, r1) in zip(zip(cols, rows), zip(cols[1:], rows[1:])):
+            n = max(abs(c1 - c0), abs(r1 - r0)) + 1
+            rr = np.round(np.linspace(r0, r1, n)).astype(int)
+            cc = np.round(np.linspace(c0, c1, n)).astype(int)
+            color = _EMPHASIS if c == emphasis else _CURVE
+            img[rr, cc] = color
+            if c == emphasis:
+                img[np.maximum(rr - 1, 0), cc] = color
+    return img
+
+
+def bar_panel(values, ylim: Tuple[float, float] = (0.0, 1.0), size: Tuple[int, int] = PANEL) -> np.ndarray:
+    """One bar a value, evenly spaced, as an RGB panel in [0, 1], heights
+    over ``ylim`` from its bottom."""
+    values = np.asarray(values, np.float64).reshape(-1)
+    h, w = size
+    img = _framed(size)
+    slot = (w - 2) / len(values)
+    tops = _rows_of(values, ylim[0], ylim[1], h)
+    for i, top in enumerate(tops):
+        c0, c1 = int(2 + i * slot + slot * 0.15), int(2 + (i + 1) * slot - slot * 0.15)
+        img[top:h - 1, c0:max(c1, c0 + 1)] = _BAR
+    return img
+
+
+def image_panel(img, vmin: float = -1.0, vmax: float = 1.0, height: int = PANEL[0]) -> np.ndarray:
+    """A grayscale image (mapped from [vmin, vmax]) or an RGB one (in
+    [0, 1]) as an RGB panel ``height`` high, enlarged by whole pixels."""
+    img = np.asarray(img, np.float32).squeeze()
+    if img.ndim == 2:
+        img = np.repeat(((img - vmin) / (vmax - vmin))[..., None], 3, axis=2)
+    k = max(1, height // img.shape[0])
+    return np.clip(np.repeat(np.repeat(img, k, axis=0), k, axis=1), 0.0, 1.0)
+
+
+def save_panels_png(path: str, panels: Sequence[np.ndarray], title: str = "", gap: int = 4) -> np.ndarray:
+    """RGB panels in [0, 1] side by side, top-aligned on a black ground with
+    ``gap`` pixels between them, as an 8-bit RGB PNG; the title goes to
+    stdout. Returns the pixels."""
+    h = max(p.shape[0] for p in panels)
+    w = sum(p.shape[1] for p in panels) + gap * (len(panels) - 1)
+    out = np.zeros((h, w, 3), np.float32)
+    at = 0
+    for p in panels:
+        out[:p.shape[0], at:at + p.shape[1]] = p
+        at += p.shape[1] + gap
+    pix = np.clip(np.round(out * 255.0), 0, 255).astype(np.uint8)
+    write_png(path, pix)
+    print(f"{path}: {title}" if title else path)
     return pix
 
 
@@ -279,8 +373,9 @@ def scatter_panel(x, y, size: int = 96) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """The pixels ``(H, W)`` uint8 of an 8-bit grayscale PNG whose rows all
-    use filter type 0 (what :func:`save_grid_png` writes)."""
+    """The pixels ``(H, W)`` (grayscale) or ``(H, W, 3)`` (RGB) uint8 of an
+    8-bit PNG whose rows all use filter type 0 (what :func:`write_png`
+    writes)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -296,10 +391,12 @@ def read_png(path: str) -> np.ndarray:
         elif kind == b"IDAT":
             idat += body
         at += 12 + n
-    if head is None or head[2:5] != (8, 0, 0):
-        raise ValueError(f"{path}: not an 8-bit grayscale PNG ({head})")
+    if head is None or head[2] != 8 or head[3] not in (0, 2) or head[4] != 0:
+        raise ValueError(f"{path}: not an 8-bit grayscale or RGB PNG ({head})")
     w, h = head[:2]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    ch = 3 if head[3] == 2 else 1
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w * ch + 1)
     if rows[:, 0].any():
         raise ValueError(f"{path}: a row filter other than 0")
-    return rows[:, 1:].copy()
+    pix = rows[:, 1:].copy()
+    return pix.reshape(h, w, 3) if ch == 3 else pix

@@ -23,6 +23,12 @@ flax. Layout changes:
   JAX trainer's ``flat_adam`` dict of raveled vectors (cut back into the
   parameters' tree in ``ravel_pytree``'s leaf order: dict keys sorted, each
   leaf row-major); a bfloat16 ``mu`` arrives as its exact float32 values;
+- a VAE training state (``vae_trainer_state_from_jax``: ``params``, ``opt``,
+  ``step``) into ``train.vae_trainer.VAETrainer``'s form;
+- an unconditional GAN state (``uncond_gan_state_from_jax``: ``params_G``,
+  ``params_D``, ``opt_g``, ``opt_d``, ``step``; an ``adamw`` state is
+  ``(ScaleByAdamState, EmptyState, EmptyState)``) into
+  ``train.uncond_gan_trainer.UncondGANTrainer``'s form;
 - attribute-SCM trees (flows, MLP layer lists ``[{"w": (in, out), "b"}]``,
   categorical logits) carry across leaf for leaf.
 
@@ -205,6 +211,29 @@ def vae_params_from_jax(params: Mapping, cfg: BiGANConfig, device: DeviceLike = 
     model = ConditionalVAE(cfg, device)
     model.load_state_dict(vae_state_dict_from_jax(params))
     return model
+
+
+def vae_trainer_state_from_jax(tree: Mapping) -> Dict:
+    """The numpy form of the JAX VAE trainer's checkpoint (``params``,
+    ``opt``, ``step``) -> the form that ``VAETrainer.load_state_dict``
+    takes; the JAX noise key is not carried."""
+    return {"module": vae_state_dict_from_jax(tree["params"]),
+            "opt": _adam_from_optax(tree["opt"], vae_state_dict_from_jax, tree["params"]),
+            "step": int(np.asarray(tree["step"])), "rng": None}
+
+
+def uncond_gan_state_from_jax(tree: Mapping) -> Dict:
+    """The numpy form of a JAX ``UncondGANState`` (``params_G``,
+    ``params_D``, ``opt_g``, ``opt_d``, ``step``) -> the form that
+    ``UncondGANTrainer.load_state_dict`` takes; the JAX noise key is not
+    carried."""
+    def trunk(params):
+        return {f"trunk.{k}": v for k, v in plan_state_dict_from_jax(params["trunk"]).items()}
+
+    return {"G": trunk(tree["params_G"]), "D": trunk(tree["params_D"]),
+            "opt_g": _adam_from_optax(tree["opt_g"], trunk, tree["params_G"]),
+            "opt_d": _adam_from_optax(tree["opt_d"], trunk, tree["params_D"]),
+            "step": int(np.asarray(tree["step"])), "rng": None}
 
 
 def scm_from_jax_state_dict(sd: Mapping, device: DeviceLike = None) -> MNISTAttributeSCM:

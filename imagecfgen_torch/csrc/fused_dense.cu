@@ -19,7 +19,8 @@
 // wgmma.mma_async (3xTF32 for f32 tensors, bf16 for bf16 tensors), a
 // cp.async ring of K slices, w packed K-major as stored (the port's (N, K)
 // layout; for f32 split once into tf32 hi and lo parts by the wrapper, and
-// padded where K is ragged). At the head's shape the whole of M is one tile
+// padded where K is ragged), the float32 sum promoted out of the tensor
+// cores every K slice. At the head's shape the whole of M is one tile
 // row, 128 x 64 tiles number 16, and K is split over a cluster of 8 blocks
 // (128 blocks for 132 SMs) whose partial tiles are summed in rank order
 // through distributed shared memory before the bias, LeakyReLU and the only

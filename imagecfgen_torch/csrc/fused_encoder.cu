@@ -20,7 +20,8 @@
 // pixels by N = Cout channels over K = KH*KW*Cin taps, launched once per
 // layer on the caller's stream: wgmma.mma_async tensor-core instructions
 // (3xTF32 for f32 tensors, bf16 for bf16 tensors, f32 accumulators), a
-// cp.async ring of K slices in shared memory, the im2col gather walked by
+// cp.async ring of K slices in shared memory, float32 sums promoted out of
+// the tensor cores every K slice, the im2col gather walked by
 // increments with 16-byte loads along the input channels, mma.sync on a
 // masked scalar gather for the first layer (5 or 7 channels), weights packed
 // K-major once by the wrapper, and a split of K over a thread-block cluster,

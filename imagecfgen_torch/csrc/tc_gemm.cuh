@@ -25,6 +25,18 @@
 // first. That keeps f32-level accuracy; single-pass TF32 is never used.
 // The epilogue adds the bias, applies LeakyReLU and rounds once to T.
 //
+// Promotion (float32). The tensor cores truncate when they add into a
+// float32 accumulator, and along a long K the truncations add up toward zero.
+// So a chain of tensor-core sums is kept short and the chains are added with
+// float32 FADDs, which round to nearest. conv_wgmma begins a fresh
+// accumulator (scale-d 0) every K slice and adds it into a second register
+// array after the wgmma wait that float32 makes on every slice anyway; the
+// 512-thread tile has no registers for that array, and the plan gives it
+// bf16 layers only. conv_mma sums each 8-deep step's three products in a
+// fresh fragment and adds that into its sum. bf16 keeps one sum: its outputs
+// round to 8 bits, hundreds of times the drift, and a promoted bf16 loop
+// measured 13 % slower.
+//
 // Staging. A ring of STAGES tiles in dynamic shared memory, one K slice of
 // 128 bytes per row and stage (32 floats or 64 bf16), filled by 16-byte
 // cp.async copies with zero-fill, so loads for later slices are in flight
@@ -122,6 +134,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same product with C = 0: the first of a fresh fragment
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -325,7 +347,7 @@ conv_mma(const ConvArgs p) {
     copy_b_slice<T, BN, NT>(p, a_tile + A_BYTES, n0, s, tid);
   };
 
-  float acc[MT][NF][4];
+  float acc[MT][NF][4];  // f32: FADDs of fresh fragments
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -351,7 +373,9 @@ conv_mma(const ConvArgs p) {
     const unsigned char* b_tile = a_tile + A_BYTES;
 
     if constexpr (F32) {
-#pragma unroll
+      // one 8-deep step an iteration: unrolled, the steps' fragments and
+      // fresh sums are live at once, past the registers of two blocks an SM
+#pragma unroll 1
       for (int ks = 0; ks < BK / 8; ++ks) {
         const int kb0 = (ks * 8 + t) * 4, kb1 = kb0 + 16;
         uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NF][2], b_lo[NF][2];
@@ -378,19 +402,26 @@ conv_mma(const ConvArgs p) {
           b_lo[j][0] = *reinterpret_cast<const uint32_t*>(b_tile + B_BYTES + swz(n, kb0));
           b_lo[j][1] = *reinterpret_cast<const uint32_t*>(b_tile + B_BYTES + swz(n, kb1));
         }
-        // small terms first
+        // small terms first, into a fresh fragment; then one rounding FADD each
+        float f[MT][NF][4];
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < NF; ++j) mma_tf32(acc[i][j], a_lo[i], b_hi[j][0], b_hi[j][1]);
+          for (int j = 0; j < NF; ++j) mma_tf32_first(f[i][j], a_lo[i], b_hi[j][0], b_hi[j][1]);
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < NF; ++j) mma_tf32(acc[i][j], a_hi[i], b_lo[j][0], b_lo[j][1]);
+          for (int j = 0; j < NF; ++j) mma_tf32(f[i][j], a_hi[i], b_lo[j][0], b_lo[j][1]);
 #pragma unroll
         for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int j = 0; j < NF; ++j) mma_tf32(acc[i][j], a_hi[i], b_hi[j][0], b_hi[j][1]);
+          for (int j = 0; j < NF; ++j) mma_tf32(f[i][j], a_hi[i], b_hi[j][0], b_hi[j][1]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NF; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += f[i][j][e];
       }
     } else {
       const uint32_t a_base = smem_addr(a_tile), b_base = smem_addr(b_tile);
@@ -466,49 +497,55 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// Reads and writes of an accumulator stay after a wgmma wait: the compiler
+// does not see that the asynchronous wgmma writes those registers.
+template <int N> __device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
 // generic-proxy writes (cp.async) become visible to the async proxy (wgmma)
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int add) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b));
+      : "l"(desc_a), "l"(desc_b), "r"(add));
 }
 
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int add) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
       "{%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
 }
 
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int add) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b));
+      : "l"(desc_a), "l"(desc_b), "r"(add));
 }
 
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int add) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
       "{%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
 }
 
 // One BM x BN output tile over the K slices of blockIdx.z, on wgmma. Each
@@ -520,7 +557,12 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 //         and lo, and runs a_lo*b_hi, a_hi*b_lo, a_hi*b_hi per 8-deep step
 //         with A from registers and the packed hi and lo weights from
 //         shared memory.
-template <typename T, int BM, int BN>
+// PROMOTE (float32): every K slice the tensor cores' sum is added into the
+// float32 sum that the tile leaves for its epilogue. It doubles the
+// accumulator's registers, which fits under the 255 a thread of 256 threads
+// or fewer, not under the 128 of 512 threads (tools/tile_registers.py builds
+// that case); launch_typed never instantiates it.
+template <typename T, int BM, int BN, bool PROMOTE = sizeof(T) == 4>
 __global__ void __launch_bounds__(BM * 2) conv_wgmma(const ConvArgs p) {
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int BK = Elem<T>::BK;
@@ -595,9 +637,12 @@ __global__ void __launch_bounds__(BM * 2) conv_wgmma(const ConvArgs p) {
     copy_b_slice<T, BN, NT>(p, a_tile + A_BYTES, n0, s, tid);
   };
 
-  float acc[NACC];
+  // acc: the tensor cores' sum; PROMOTE: of the current K slice only, begun
+  // afresh by its first wgmma (scale-d 0), and sum: the slices' sum, added in
+  // float32 FADDs that round to nearest.
+  float acc[NACC], sum[NACC];
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc[i] = sum[i] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s) {
@@ -638,23 +683,34 @@ __global__ void __launch_bounds__(BM * 2) conv_wgmma(const ConvArgs p) {
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < BK / 8; ++ks) {  // 32 bytes of K a step: +2 in the descriptor
-        wgmma_tf32(acc, a_lo[ks], desc_b + 2 * ks);
-        wgmma_tf32(acc, a_hi[ks], desc_b_lo + 2 * ks);
-        wgmma_tf32(acc, a_hi[ks], desc_b + 2 * ks);
+        wgmma_tf32(acc, a_lo[ks], desc_b + 2 * ks, ks > 0 || !PROMOTE);
+        wgmma_tf32(acc, a_hi[ks], desc_b_lo + 2 * ks, 1);
+        wgmma_tf32(acc, a_hi[ks], desc_b + 2 * ks, 1);
       }
     } else {
       const uint64_t desc_a = smem_desc(smem_addr(a_tile + wg_row0 * 128));
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) wgmma_bf16(acc, desc_a + 2 * ks, desc_b + 2 * ks);
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_bf16(acc, desc_a + 2 * ks, desc_b + 2 * ks, ks > 0 || !PROMOTE);
     }
     wgmma_commit();
-    wgmma_wait<INFLIGHT>();
+    if constexpr (PROMOTE) {
+      wgmma_wait<0>();
+      fence_operands(acc);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) sum[i] += acc[i];
+    } else {
+      wgmma_wait<INFLIGHT>();
+    }
   }
   wgmma_wait<0>();
   cp_async_wait<0>();
+  fence_operands(acc);
+  if constexpr (!PROMOTE) {
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+    for (int i = 0; i < NACC; ++i) sum[i] = acc[i];
+  }
 
   // accumulator i: row row0 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * t + (i & 1)
   cg::cluster_group cluster = cg::this_cluster();
@@ -663,7 +719,7 @@ __global__ void __launch_bounds__(BM * 2) conv_wgmma(const ConvArgs p) {
 #pragma unroll
   for (int i = 0; i < NACC; i += 2)
     *reinterpret_cast<float2*>(part + (row0 + ((i >> 1) & 1) * 8) * (BN + PART_PAD) +
-                               (i >> 2) * 8 + 2 * t) = make_float2(acc[i], acc[i + 1]);
+                               (i >> 2) * 8 + 2 * t) = make_float2(sum[i], sum[i + 1]);
   if (p.split > 1) {
     cluster.sync();
   } else {
@@ -709,7 +765,9 @@ cudaError_t launch_typed(int tile, bool vec, const ConvArgs& a, cudaStream_t s) 
       case 0: return launch_kernel(conv_wgmma<T, 128, 128>, 128, 128, 256, ring_bytes<T>(128, 128) + 1024, a, s);
       case 1: return launch_kernel(conv_wgmma<T, 128, 64>, 128, 64, 256, ring_bytes<T>(128, 64) + 1024, a, s);
       case 2: return launch_kernel(conv_wgmma<T, 64, 64>, 64, 64, 128, ring_bytes<T>(64, 64) + 1024, a, s);
-      case 3: return launch_kernel(conv_wgmma<T, 256, 128>, 256, 128, 512, ring_bytes<T>(256, 128) + 1024, a, s);
+      case 3:  // no promoted sum: bf16 only (the plan never gives float32 this tile)
+        if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
+        else return launch_kernel(conv_wgmma<T, 256, 128>, 256, 128, 512, ring_bytes<T>(256, 128) + 1024, a, s);
       default: return cudaErrorInvalidValue;
     }
   }

@@ -29,6 +29,10 @@ import torch
 #: it moves fewer bytes per operation, but measured slower with a K split.
 TILES = ((128, 128, 1.0), (128, 64, 0.8), (64, 64, 0.6), (256, 128, 1.2))
 UNSPLIT_VECTOR_TILES = (3,)
+#: tiles whose kernel has no registers for the float32 sum promoted out of
+#: the tensor cores every K slice (512 threads; ``csrc/tc_gemm.cuh``,
+#: Promotion): float32 layers never take them
+UNPROMOTED_TILES = (3,)
 DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take
 MAX_SPLIT = 8          # blocks of one thread-block cluster
 MIN_SPLIT_SLICES = 4   # no split leaves a block fewer K slices than this
@@ -74,13 +78,14 @@ def plan_gemm(m: int, n: int, k: int, cin: int, dtype: torch.dtype, sms: int) ->
     ``ceil(blocks / sms)`` blocks one after the other, a block costs its K
     slices (plus a fixed part, plus the reduction when K is split) times its
     tile's area over that tile's efficiency. The cheapest (tile, split)
-    wins; ties go to the larger tile and the smaller split."""
+    wins; ties go to the larger tile and the smaller split. float32 takes
+    only tiles that promote their sums."""
     bk = slice_depth(dtype)
     slices = -(-k // bk)
     best = None
     vec = cin % bk == 0
     for tile, (bm, bn, eff) in enumerate(TILES):
-        if tile in UNSPLIT_VECTOR_TILES and not vec:
+        if (tile in UNSPLIT_VECTOR_TILES and not vec) or (tile in UNPROMOTED_TILES and dtype == torch.float32):
             continue
         tiles = -(-m // bm) * -(-n // bn)
         for split in range(1, 2 if tile in UNSPLIT_VECTOR_TILES else MAX_SPLIT + 1):

@@ -4,7 +4,9 @@ in one flat buffer each, and its state by parameter name.
 :class:`Adam` computes ``optax.adam``'s update in float32:
 ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g² + b2 nu``, then
 ``p -= lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)``, eps
-outside the root. The gradients are concatenated into one vector and each
+outside the root. ``weight_decay`` makes it ``optax.adamw``: the decoupled
+``p -= lr * (update + weight_decay * p)`` on every parameter, ``p`` as it
+was before the step. The gradients are concatenated into one vector and each
 moment lives in one buffer for all the parameters (the JAX package's
 ``flat_adam`` storage), so a step is a few large kernels and one
 multi-tensor add into the parameters, whatever their number: the GAN step
@@ -39,13 +41,15 @@ def assign_grads(params: List[torch.nn.Parameter], loss: torch.Tensor) -> None:
 
 class Adam:
     """``optax.adam(lr, b1, b2, eps, mu_dtype=...)`` on ``params`` (updated
-    in place from their ``.grad``)."""
+    in place from their ``.grad``); with ``weight_decay``,
+    ``optax.adamw(lr, b1, b2, eps, weight_decay=...)`` (no mask)."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], lr: float,
                  betas: Tuple[float, float], eps: float = 1e-8,
-                 mu_dtype: torch.dtype = torch.float32):
+                 mu_dtype: torch.dtype = torch.float32, weight_decay: float = 0.0):
         self.params = list(params)
         self.lr, (self.b1, self.b2), self.eps = lr, tuple(betas), eps
+        self.weight_decay = weight_decay
         self.count = 0
         self.sizes = [p.numel() for p in self.params]
         dev = self.params[0].device
@@ -65,7 +69,10 @@ class Adam:
         den = torch.div(self.nu, 1 - b2 ** self.count).sqrt_().add_(self.eps)
         upd = torch.div(mu, 1 - b1 ** self.count).div_(den)
         self.mu = mu.to(self.mu.dtype)  # rounded to the stored type
-        torch._foreach_add_(self.params, self._per_param(upd), alpha=-self.lr)
+        upd = self._per_param(upd)
+        if self.weight_decay:
+            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, upd, alpha=-self.lr)
 
     def moments(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """``(mu, nu)``, one view of the buffers per parameter, in its

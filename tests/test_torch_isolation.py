@@ -98,6 +98,32 @@ def test_audio_slice_entry_points_raise_when_no_gpu(monkeypatch, entry):
             GANTrainer(model, GANTrainConfig())
 
 
+def test_sources_cover_the_last_mnist_and_audio_modules():
+    """Pin that the glob reaches the unconditional GAN, its trainer, and the
+    nine CLIs of the slice that ends MNIST and AudioMNIST (four figure CLIs
+    drawn without matplotlib)."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    clis = ("display_thickness", "causal_graph_cf", "uncertainty_evolution", "cf_automatic_mix",
+            "train_audio_mnist_vae", "audiomnist_vae_score", "audiomnist_vae_generator_score",
+            "finetune_audio_mnist_bigan", "train_audio_gan")
+    assert {f"imagecfgen_torch/cli/{m}.py" for m in clis} <= names
+    assert {"imagecfgen_torch/models/gan.py", "imagecfgen_torch/train/uncond_gan_trainer.py",
+            "imagecfgen_torch/tools/trunk_precision.py"} <= names
+
+
+@pytest.mark.parametrize("entry", ["UncondGenerator", "UncondGANTrainer"])
+def test_uncond_gan_without_device_raises_when_no_gpu(monkeypatch, entry):
+    from imagecfgen_torch.models.gan import UncondGANConfig, UncondGenerator
+    from imagecfgen_torch.train.uncond_gan_trainer import UncondGANTrainConfig, UncondGANTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "UncondGenerator":
+            UncondGenerator(UncondGANConfig(d=2))
+        else:
+            UncondGANTrainer(UncondGANConfig(d=2), UncondGANTrainConfig())
+
+
 def test_sources_cover_the_cli_slice():
     """Pin that the glob reaches the CLI layer and the data modules it
     reads through."""

@@ -203,3 +203,14 @@ def test_plan_adapts_to_the_sm_count():
     few = tc.plan_gemm(2048, 512, 4096, 256, F32, 16)
     many = tc.plan_gemm(2048, 512, 4096, 256, F32, SMS)
     assert few.split == 1 and many.split > 1
+
+
+@pytest.mark.parametrize("path,batch", [("mnist", 1), ("mnist", 64), ("mnist", 2048), ("audio", 16),
+                                        ("audio", 128), ("audio", 256), ("audio", 2048)])
+def test_float32_layers_take_only_tiles_that_promote_their_sums(path, batch):
+    """The tensor cores' float32 sums truncate, so every float32 layer keeps
+    a promoted sum: it never takes the tile without registers for one."""
+    cfg, hw, c = (mnist_bigan_config(), 28, 5) if path == "mnist" else (audio_mnist_bigan_config(), 128, 7)
+    shapes = _trunk_shapes(cfg, c)
+    for p in trunk_launch_plan((batch, hw, hw, c), shapes, plan_conv_ops(cfg.enc_plan), F32, SMS):
+        assert p.tile not in tc.UNPROMOTED_TILES, p
