@@ -256,12 +256,44 @@ P1. the float32 sums against float64 (``tools/trunk_precision.py``): AU2's
     and 102,400; within a quarter of their gates), with the peak of device
     memory and the bytes of the packed hi/lo weights.
 
+and for the marine slice, at full width (d = 64, latent 512) on the
+synthetic stand-ins, float32, with both kernels' inputs recorded at the
+first launch of each shape and held against their plain versions (and,
+printed, float64) at every shape a CLI gave them:
+
+W1. the whale-call CLIs: ``train_whale_clf`` (one epoch at batch 32, one
+    ``fused_dense`` launch a step), ``train_whale_bigan`` with ``--remat``
+    (one epoch, ``--resume`` for a second, bit for bit against an
+    uninterrupted two-epoch run; one ``fused_encoder`` launch a step),
+    ``train_whale_vae`` and ``finetune_whale_bigan`` (no kernel launch: E is
+    differentiated), ``whale_generator_score`` and ``whale_cf_score`` with
+    ``--bigan-ft`` and ``--vae`` (launches checked against the data's counts;
+    each of ``whale_cf_score``'s launches told apart by the first conv kernel
+    of the trunk it ran: the BiGAN's, the fine-tuned BiGAN's or the VAE's,
+    as their files hold them); each CLI's
+    seconds, steps/s, launches and launch shapes; the trunk kernel at the
+    recompute's (32, 256, 256, 2) on the trained BiGAN's and VAE's trunks and
+    fan-in weights, timed;
+W2. the whale trunk, whole, at B = 32 against float64 within a quarter of
+    the float32 gate, on the trained weights and on fan-in weights (P1's
+    check; each layer alone printed);
+S1. the ESRF CLIs: ``train_esrf_bigan --max-batches 1`` (remat on, batch 16,
+    one epoch, ``--resume`` for a second, bit for bit), with the device's peak
+    memory, the checkpoint's bytes, its save and load seconds, the host's
+    peak resident memory while it loads and the disk's free space;
+    ``finetune_esrf_bigan`` (one epoch, no kernel launch, E and G saved
+    alone) and ``esrf_quality``; the whole ESRF trunk at (16, 512, 512, 3)
+    against its plain version on the trained weights and on fan-in weights,
+    timed.
+
 The ``kernels`` line lists every kernel row (``launches``: the count of the
 row's own path, read around it alone: the serving path's, the explainer
 CLIs' for ``fused_encoder:b1`` at (1, 28, 28, 5), ``audiomnist_cf_eval``'s
 for ``fused_encoder:audio_cf_eval``, the bf16 training CLI's for
 ``fused_encoder:audio_train_bf16``, since no serving CLI runs the kernel in
-bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``; ``train_launches`` over ``train_steps``: the training path's;
+bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``, the marine
+CLIs' for ``fused_encoder:whale``, ``fused_encoder:whale_vae``,
+``fused_encoder:esrf`` and ``fused_dense:narw``; ``train_launches`` over ``train_steps``: the training path's;
 ``cli_launches``: each CLI run's at the row's shape, C, M, X and AU phases;
 the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
 CLIs' at every batch); the last line of output
@@ -1899,17 +1931,21 @@ def dtype_name(dtype) -> str:
 
 
 @contextlib.contextmanager
-def recording_launches(seen: dict, label: str):
+def recording_launches(seen: dict, label: str, firsts: list | None = None):
     """Both kernels' launches with the inputs of the first launch at each
     (kernel, type, shape) copied into ``seen`` under the CLI run ``label``
-    that gave it (``plan_gemm`` picks tiles and K splits from the shape). The
-    wrappers' own launch functions still launch and count."""
+    that gave it (``plan_gemm`` picks tiles and K splits from the shape);
+    with ``firsts``, a copy of the first conv kernel of every trunk launch,
+    which tells apart the models a run launched. The wrappers' own launch
+    functions still launch and count."""
     from imagecfgen_torch.ops import fused_dense as fd
     from imagecfgen_torch.ops import fused_encoder as fe
 
     enc, dense = fe._launch, fd._launch
 
     def enc_shim(feats, pairs, conv_ops, first):
+        if firsts is not None:
+            firsts.append(pairs[0][0].detach().clone())
         key = ("fused_encoder", TAG[feats.dtype], tuple(feats.shape))
         if key not in seen:
             seen[key] = (label, feats.clone(), [(w.detach().clone(), b.detach().clone()) for w, b in pairs],
@@ -2546,6 +2582,351 @@ def audio_vae_gan_phases(args, dev, card, peak, tmp: str):
     return launches, lines, vae_row
 
 
+# the marine slice at full width: whale_bigan_config(d=64), whale_vae_config(d=64) and
+# narw_classifier_config(width=1.0) on the whale stand-in at 64 clips a call type (153
+# training and 39 validation windows), esrf_bigan_config(d=64) on the ESRF stand-in's 24
+# recordings (the first batch of recordings, --max-batches 1, holds 32 or more windows)
+W_D, W_CLIPS, W_BATCH = 64, 64, 32
+S_RECORDINGS, S_BATCH = 24, 16
+
+
+def host_rss() -> int:
+    """This process's resident memory (``VmRSS``), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+@contextlib.contextmanager
+def sampling_rss(peak: list, every_s: float = 0.005):
+    """Inside, a thread reads this process's resident memory every
+    ``every_s`` seconds and keeps the largest reading in ``peak[0]``."""
+    import threading
+
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], host_rss())
+            done.wait(every_s)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        done.set()
+        thread.join()
+        peak[0] = max(peak[0], host_rss())
+
+
+@contextlib.contextmanager
+def timing_saves(module, seconds: list):
+    """Inside, each ``save_train_state`` that ``module`` calls appends its
+    seconds to ``seconds``."""
+    real = module.save_train_state
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        real(*a, **k)
+        seconds.append(time.perf_counter() - t0)
+
+    module.save_train_state = timed
+    try:
+        yield
+    finally:
+        module.save_train_state = real
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+def dense_row(name, seen_entry, launches, peak, card, **extra):
+    """The ``fused_dense`` row at one recorded launch's inputs: the kernel,
+    its plain version and ``F.linear`` + ``F.leaky_relu``, timed."""
+    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu, fused_dense_reference
+
+    label, x, w, b, slope = seen_entry
+    with torch.no_grad():
+        err = agree(f"fused_dense {name} {tuple(x.shape)}x{tuple(w.shape)}", fused_dense_lrelu(x, w, b, slope),
+                    fused_dense_reference(x, w, b, slope), F32)
+        ms = time_ms(lambda: fused_dense_lrelu(x, w, b, slope), reps=200, warmup=10)
+        plain_ms = time_ms(lambda: fused_dense_reference(x, w, b, slope), reps=100, warmup=5)
+        lib_ms = time_ms(lambda: F.leaky_relu(F.linear(x, w, b), slope), reps=200, warmup=10)
+        dev_ms = device_ms(lambda: fused_dense_lrelu(x, w, b, slope))
+        lib_dev = device_ms(lambda: F.leaky_relu(F.linear(x, w, b), slope))
+    flops, nbytes = dense_cost(x.shape[0], x.shape[1], w.shape[0])
+    return row(name, F32, "imagecfgen_torch/csrc/fused_dense.cu", "imagecfgen_tpu/ops/pallas/fused_dense.py:57",
+               launches, err, ms, plain_ms, lib_ms, flops, nbytes, peak, card, shape=[x.shape[0], x.shape[1],
+                                                                                      w.shape[0]],
+               device_ms=dev_ms, library_device_ms=lib_dev, first_run=label, **extra)
+
+
+def trunk_row(name, line, launches, peak, card, **extra):
+    return row(name, F32, "imagecfgen_torch/csrc/fused_encoder.cu", "imagecfgen_tpu/ops/pallas/fused_encoder.py:127",
+               launches, line["max_abs_err"], line["ms"], line["plain_ms"], line["library_ms"], line["flops"],
+               line["bytes"], peak, card, batch=line["shape"][0], shape=line["shape"], device_ms=line["device_ms"],
+               library_device_ms=line["library_device_ms"], **extra)
+
+
+def marine_phases(args, dev, card, peak, tmp: str):
+    """Phases W1, W2 and S1: the marine CLIs at full width in ``tmp/whale``
+    and ``tmp/esrf``. Returns ({kernel: {CLI run: launches}}, lines, the four
+    marine kernel rows)."""
+    import shutil
+
+    from imagecfgen_torch.cli import common as cli_common
+    from imagecfgen_torch.cli.common import bigan_from_state
+    from imagecfgen_torch.cli.whale_common import (
+        collect_whale_arrays,
+        load_esrf_dataset,
+        load_whale_bigan,
+        load_whale_dataset,
+        load_whale_vae,
+    )
+    from imagecfgen_torch.core.checkpoint import load_train_state
+    from imagecfgen_torch.models.bigan import Encoder, esrf_bigan_config, whale_bigan_config
+    from imagecfgen_torch.tools.trunk_precision import trunk_layers
+
+    launches, lines, secs = {"fused_encoder": {}, "fused_dense": {}}, [], {}
+    run, seen = cli_runner(dev, launches, secs, "W"), {}
+    shapes_of, rates = {}, {}
+
+    def cli(label, name, *argv, firsts=None):
+        before = set(seen)
+        with recording_launches(seen, label, firsts):
+            text = run(label, name, *argv)
+        shapes_of[label] = [f"{k[0]} {'x'.join(map(str, k[2]))}" for k in sorted(set(seen) - before)]
+        rates[label] = steps_per_s(text)
+        print(f"W {label}: steps/s {rates[label]}, new launch shapes {shapes_of[label]}")
+        return text
+
+    whale, wstraight, esrf, estraight = (os.path.join(tmp, n) for n in ("whale", "whale-straight", "esrf",
+                                                                          "esrf-straight"))
+    work = os.path.join(tmp, "whale-ft")
+    os.makedirs(work)
+    data = load_whale_dataset(None, None, None, synthetic_clips=W_CLIPS)
+    n_train = sum(len(b["call_type"]) for b in data.stream(transform=False, mode="train"))
+    n_val = sum(len(b["call_type"]) for b in data.stream(transform=False, mode="validation"))
+    steps, clips = n_train // W_BATCH, ("--synthetic-clips", W_CLIPS)
+    check((n_train, n_val) == (153, 39), f"W1: the stand-in has {n_train} + {n_val} windows")
+
+    # ------------------------------------------------ W1. the whale-call CLIs
+    cli("train_whale_clf", "train_whale_clf", "--output-path", whale, "--epochs", 1, "--width", 1.0,
+        "--batch-size", W_BATCH, *clips)
+    gan = ("--d", W_D, "--init-std", 0.01, "--batch-size", W_BATCH, "--remat", *clips)
+    with deterministic():
+        texts = [cli("train_whale_bigan", "train_whale_bigan", "--output-path", whale, "--steps", 1, *gan),
+                 cli("train_whale_bigan --resume", "train_whale_bigan", "--output-path", whale, "--steps", 2,
+                     "--resume", *gan),
+                 cli("train_whale_bigan epochs 1-2", "train_whale_bigan", "--output-path", wstraight, "--steps", 2,
+                     *gan)]
+    check(f"at epoch 1 (step {steps})" in texts[1], "W1: the whale --resume did not start at its step")
+    got, _, meta = load_whale_bigan(os.path.join(whale, "whale-bigan.tar"), dev)
+    want, _, _ = load_whale_bigan(os.path.join(wstraight, "whale-bigan.tar"), dev)
+    check(meta["epoch"] == 2 and got["step"] == 2 * steps and got["opt_d"]["count"] == 4 * steps,
+          f"W1: the resumed whale BiGAN ended at step {got['step']}")
+    same_tree(got, want, "W1 resumed whale BiGAN state")
+    print(f"W1 train_whale_bigan --resume: epoch 2 ({steps} steps) equals the uninterrupted run's bit for bit")
+    del got, want
+    cli("train_whale_vae", "train_whale_vae", "--output-path", whale, "--steps", 1, "--d", W_D,
+        "--batch-size", W_BATCH, *clips)
+    with contextlib.chdir(work):
+        cli("finetune_whale_bigan", "finetune_whale_bigan", "--model-file", os.path.join(whale, "whale-bigan.tar"),
+            "--steps", 1, "--batch-size", W_BATCH, *clips)
+    shutil.copy(os.path.join(work, "whale-bigan-finetuned-mse.tar"), whale)
+    gen_acc = printed_score(cli("whale_generator_score", "whale_generator_score", "--model-dir", whale, "--n", 256,
+                                "--batch-size", 64), "generated call-type accuracy")
+    cf_firsts = []
+    text = cli("whale_cf_score", "whale_cf_score", "--model-dir", whale, "--bigan-ft",
+               "whale-bigan-finetuned-mse.tar", "--vae", "whale-vae.tar", "--batch-size", W_BATCH, *clips,
+               firsts=cf_firsts)
+    cf_acc = {m: float(v) for m, v in re.findall(r"(\w+): call-type cf accuracy = ([0-9.]+)", text)}
+    check(set(cf_acc) == {"bigan", "bigan_ft", "vae"}, f"W1: whale_cf_score printed {cf_acc}")
+    cf_batches = -(-n_val // W_BATCH)
+    expect = {  # each CLI's launches, from the data's counts
+        "train_whale_clf": (0, steps), "train_whale_bigan": (steps, 0), "train_whale_bigan --resume": (steps, 0),
+        "train_whale_bigan epochs 1-2": (2 * steps, 0), "train_whale_vae": (0, 0), "finetune_whale_bigan": (0, 0),
+        "whale_generator_score": (0, 256 // 64), "whale_cf_score": (3 * cf_batches, 3 * cf_batches)}
+    for label, (enc, dense) in expect.items():
+        got = (launches["fused_encoder"][label], launches["fused_dense"][label])
+        check(got == (enc, dense), f"W1: {label} launched (fused_encoder, fused_dense) {got}, not {(enc, dense)}")
+
+    wcfg = whale_bigan_config(W_D)
+    state, stats, _ = load_whale_bigan(os.path.join(whale, "whale-bigan.tar"), dev)
+    model = bigan_from_state(state, wcfg, dev).eval()
+    del state
+    xv, calls, _ = collect_whale_arrays(data, "validation", device=dev)
+    xb, ab = xv[:W_BATCH], {"call_type": torch.from_numpy(calls[:W_BATCH]).to(dev)}
+    whale_line = trunk_at_training_shape(f"whale trunk at batch {W_BATCH}", model.encoder, xb, ab, wcfg.enc_plan,
+                                         args.seed + 90, dev, peak, card, key="kernel_at_whale_shape")
+    vae, _ = load_whale_vae(os.path.join(whale, "whale-vae.tar"), dev)
+    # whale_cf_score's launches, each counted to the model whose first conv kernel it ran
+    ft, _, _ = load_whale_bigan(os.path.join(whale, "whale-bigan-finetuned-mse.tar"), dev)
+    trunks = {what: dict(e.trunk.named_parameters())["conv_0_kernel"].detach()
+              for what, e in (("bigan", model.encoder), ("bigan_ft", bigan_from_state(ft, wcfg, dev).encoder),
+                              ("vae", vae.encoder))}
+    del ft
+    by_trunk = dict.fromkeys(trunks, 0)
+    for kernel in cf_firsts:
+        hits = [what for what, w in trunks.items() if w.shape == kernel.shape and torch.equal(w, kernel)]
+        check(len(hits) == 1, f"W1: a whale_cf_score launch ran the trunk of {hits or 'no saved model'}")
+        by_trunk[hits[0]] += 1
+    print(f"W1 whale_cf_score: fused_encoder launches by the trunk they ran {by_trunk}")
+    check(by_trunk == dict.fromkeys(trunks, cf_batches), f"W1: whale_cf_score's trunks launched {by_trunk}")
+    del cf_firsts, trunks
+    vae_line = trunk_at_training_shape(f"whale VAE trunk at batch {W_BATCH}", vae.encoder, xb, ab,
+                                       vae.cfg.enc_plan, args.seed + 91, dev, peak, card,
+                                       key="kernel_at_whale_vae_shape")
+    lines += [whale_line, vae_line]
+
+    # ---------------------------------------- W2. the whale trunk against float64
+    with torch.no_grad():
+        feats = model.encoder.attr_channels(xb, ab).contiguous()
+        trained = trunk_layers(model.encoder, feats, card)
+        fan_in = Encoder(wcfg, dev)
+        fan_in.trunk.load_state_dict(trunk_params(wcfg.enc_plan, args.seed + 92, dev, c_in=2, std=None))
+        probe = torch.from_numpy(np.random.default_rng(args.seed + 93).normal(0, 1, tuple(feats.shape))
+                                 .astype(np.float32)).to(dev)
+        fanned = trunk_layers(fan_in, probe, card)
+    for what, layers in (("trained", trained), ("fan-in", fanned)):
+        whole = layers[-1]
+        gate = GATE[F32] * max(1.0, whole["max_abs_plain"])
+        print(f"W2 whale trunk ({what} weights) at B = {W_BATCH}: max|kernel - f64| = {whole['max_abs_err_f64']:.3e} "
+              f"(bound {P1_GATE_SHARE * gate:.3e}, a quarter of the gate {gate:.3e}); layers' mean signed errors "
+              f"{[f'{p['kernel_toward_zero']:.2e}' for p in layers[:-1]]}")
+        check(whole["max_abs_err_f64"] <= P1_GATE_SHARE * gate, f"W2: the whale trunk ({what}) drifts from float64")
+    lines.append({"precision": "W2", "trunk": "whale", "trained": trained, "fan_in": fanned, "card": card})
+    del model, vae, fan_in, xv, feats, probe
+
+    # ------------------------------------------------------- S1. the ESRF CLIs
+    free_before = shutil.disk_usage(tmp).free
+    edata = load_esrf_dataset(None, None, S_RECORDINGS)
+    first = next(edata.stream(transform=False, batch_size=32, mode="train"))
+    e_steps = len(first["has_boat"]) // S_BATCH
+    check(e_steps >= 2, f"S1: the first batch of recordings holds {len(first['has_boat'])} windows")
+    egan = ("--d", W_D, "--init-std", 0.01, "--batch-size", S_BATCH, "--max-batches", 1,
+            "--synthetic-recordings", S_RECORDINGS)
+    # the uninterrupted run first, its state held in host memory: one checkpoint on disk at a time
+    with deterministic():
+        cli("train_esrf_bigan epochs 1-2", "train_esrf_bigan", "--output-path", estraight, "--steps", 2, *egan)
+        want, _ = load_train_state(os.path.join(estraight, "esrf-bigan.tar"), "cpu")
+        shutil.rmtree(estraight)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        texts = [cli("train_esrf_bigan", "train_esrf_bigan", "--output-path", esrf, "--steps", 1, *egan)]
+        train_peak = torch.cuda.max_memory_allocated(dev)
+        saves = []
+        with timing_saves(cli_common, saves):
+            texts.append(cli("train_esrf_bigan --resume", "train_esrf_bigan", "--output-path", esrf, "--steps", 2,
+                             "--resume", *egan))
+    check(f"at epoch 1 (step {e_steps})" in texts[1], "S1: the ESRF --resume did not start at its step")
+    # the trainers are gone: their parameters, Adam states and the packed hi/lo copies of E's weights
+    # (remade after every step, when E changes) must have gone with them
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left < 2 ** 30, f"S1: {left / 2**30:.2f} GiB of device memory outlived the ESRF runs")
+    path = os.path.join(esrf, "esrf-bigan.tar")
+    nbytes = os.path.getsize(path)
+    rss_before, load_rss = host_rss(), [0]
+    with sampling_rss(load_rss):
+        t0 = time.perf_counter()
+        got, meta = load_train_state(path, dev)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+    load_rss = load_rss[0]
+    check(meta["epoch"] == 2 and got["trainer"]["step"] == 2 * e_steps, f"S1: the resumed ESRF run's meta {meta}")
+    same_tree(got, to_device(want, dev), "S1 resumed ESRF state")
+    print(f"S1 train_esrf_bigan --resume: epoch 2 ({e_steps} steps) equals the uninterrupted run's bit for bit")
+    del want
+    check(len(saves) == 1, f"S1: the resumed run saved {len(saves)} times")
+    save_s = saves[0]
+    n_params = {p: sum(v.numel() for v in got["trainer"][p].values()) for p in ("E", "G", "D")}
+    del got
+    ckpt = {"checkpoint": "S1 esrf-bigan.tar", "bytes": nbytes, "load_s": load_s, "save_s": save_s,
+            "host_rss_before_loading": rss_before, "host_peak_rss_while_loading": load_rss,
+            "disk_free_before": free_before,
+            "device_peak_training": train_peak, "device_left_after_runs": left, "parameters": n_params,
+            "card": card}
+    print(f"S1 ESRF: device peak {train_peak / 2**30:.2f} GiB training at batch {S_BATCH} (remat); checkpoint "
+          f"{nbytes / 2**30:.2f} GiB, save {save_s:.1f} s (in the resumed run), load {load_s:.1f} s; host "
+          f"resident memory {rss_before / 2**30:.2f} GiB before the load, at most {load_rss / 2**30:.2f} GiB "
+          f"while loading; disk free before S1 {free_before / 2**30:.1f} GiB; parameters {n_params}")
+    check(load_rss - rss_before < nbytes / 2, "S1: loading the checkpoint held it in host memory")
+    lines.append(ckpt)
+    cli("finetune_esrf_bigan", "finetune_esrf_bigan", "--model-file", path, "--output-path", esrf,
+        "--steps", 1, "--batch-size", S_BATCH, "--max-batches", 1, "--synthetic-recordings", S_RECORDINGS)
+    payload, fmeta = load_train_state(os.path.join(esrf, "esrf-bigan-finetuned-ssim.tar"), "cpu")
+    check(set(payload["trainer"]) == {"E", "G"} and fmeta["finetuned"] == "ssim",
+          f"S1: the ESRF fine-tune saved {sorted(payload['trainer'])}")
+    del payload
+    text = cli("esrf_quality", "esrf_quality", "--model-dir", esrf, "--synthetic-recordings", S_RECORDINGS,
+               "--batch-size", S_BATCH)
+    quality = {k: float(v) for k, v in re.findall(r"(mse|ssim)=(-?[0-9.]+)", text)}
+    check(set(quality) == {"mse", "ssim"} and all(np.isfinite(list(quality.values()))), f"S1: quality {quality}")
+    n_qual = int(re.search(r"validation windows: (\d+)", text).group(1))
+    q_batches = sum(1 for _ in edata.stream(transform=False, batch_size=S_BATCH, mode="validation", shuffle=False))
+    expect = {"train_esrf_bigan": (e_steps, 0), "train_esrf_bigan --resume": (e_steps, 0),
+              "train_esrf_bigan epochs 1-2": (2 * e_steps, 0), "finetune_esrf_bigan": (0, 0),
+              "esrf_quality": (q_batches, 0)}
+    for label, want_counts in expect.items():
+        counts = (launches["fused_encoder"][label], launches["fused_dense"][label])
+        check(counts == want_counts, f"S1: {label} launched {counts}, not {want_counts}")
+    ecfg = esrf_bigan_config(W_D)
+    state, stats, _ = load_whale_bigan(path, dev)
+    model = bigan_from_state(state, ecfg, dev).eval()
+    del state
+    spects = next(edata.stream(batch_size=32, mode="train", device=dev))
+    ex = stats.spect_to_img(spects["audio"][:S_BATCH])[..., None]
+    ea = {"has_boat": torch.from_numpy(spects["has_boat"][:S_BATCH]).to(dev),
+          "closest_boat": torch.from_numpy(spects["closest_boat"][:S_BATCH]).to(dev)}
+    esrf_line = trunk_at_training_shape(f"ESRF trunk at batch {S_BATCH}", model.encoder, ex, ea, ecfg.enc_plan,
+                                        args.seed + 94, dev, peak, card, key="kernel_at_esrf_shape")
+    lines.append(esrf_line)
+    del model, spects, ex
+
+    # every shape the marine CLIs gave either kernel, on the inputs they gave it
+    whale_seen = {k: v for k, v in seen.items() if k[0] == "fused_dense" or k[2][1:3] == (256, 256)}
+    esrf_seen = {k: v for k, v in seen.items() if k[0] == "fused_encoder" and k[2][1:3] == (512, 512)}
+    check(len(whale_seen) + len(esrf_seen) == len(seen), f"W/S: launches at {sorted(seen)}")
+    checked = check_seen_launches(whale_seen, wcfg.enc_plan) + check_seen_launches(esrf_seen, ecfg.enc_plan)
+    want = {("fused_encoder", W_BATCH, 256), ("fused_encoder", n_val % W_BATCH, 256),
+            ("fused_encoder", S_BATCH, 512), ("fused_dense", W_BATCH, 4096), ("fused_dense", 64, 4096),
+            ("fused_dense", n_val % W_BATCH, 4096)}
+    got = {(k[0], k[2][0], k[2][1]) for k in seen}
+    check(want <= got, f"W/S: no launch at {sorted(want - got)}")
+    print(f"W/S: {len(checked)} launch shapes of the marine CLIs held against the plain versions")
+    lines.append({"launch_shapes": "W/S", "checked": checked, "per_cli": shapes_of, "card": card})
+    lines.append({"cli_seconds": secs, "phase": "W/S", "whale_generated_accuracy": gen_acc,
+                  "whale_cf_accuracy": cf_acc, "esrf_quality": quality, "esrf_validation_windows": n_qual,
+                  "steps_per_s": rates, "card": card})
+
+    enc = launches["fused_encoder"]
+    bigans = by_trunk["bigan"] + by_trunk["bigan_ft"]
+    bigan_runs = {r: enc[r] for r in enc if "whale" in r and r not in ("whale_cf_score", "train_whale_vae")}
+    rows = [
+        trunk_row("fused_encoder:whale", whale_line, bigans, peak, card,
+                  cli_launches={**bigan_runs, "whale_cf_score (the two BiGANs' share)": bigans},
+                  train_launches=enc["train_whale_bigan"], train_steps=steps),
+        trunk_row("fused_encoder:whale_vae", vae_line, by_trunk["vae"], peak, card,
+                  cli_launches={"whale_cf_score (the VAE's share)": by_trunk["vae"],
+                                "train_whale_vae": enc["train_whale_vae"]},
+                  train_launches=enc["train_whale_vae"], train_steps=steps),
+        trunk_row("fused_encoder:esrf", esrf_line, enc["esrf_quality"], peak, card,
+                  cli_launches={r: enc[r] for r in enc if "esrf" in r}, train_launches=enc["train_esrf_bigan"],
+                  train_steps=e_steps),
+        dense_row("fused_dense:narw", seen[("fused_dense", "f32", (W_BATCH, 4096, 1024))],
+                  launches["fused_dense"]["whale_cf_score"], peak, card,
+                  cli_launches={r: n for r, n in launches["fused_dense"].items() if n},
+                  train_launches=launches["fused_dense"]["train_whale_clf"], train_steps=steps),
+    ]
+    return launches, lines, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2724,11 +3105,13 @@ def main(argv=None) -> int:
             av_launches, av_lines, vae_row = audio_vae_gan_phases(args, dev, card, peak, tmp)
             stamp("P1")
             p_lines = precision_phase(args, dev, card, os.path.join(tmp, "audio"))
+        stamp("W1-W2, S1")
+        w_launches, w_lines, marine_rows = marine_phases(args, dev, card, peak, tmp)
         stamp("the end")
     for more in (m_launches, x_launches, f_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += m_lines + x_lines + au_lines + f_lines + av_lines + p_lines
+    cli_lines += m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines
     for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)
@@ -2744,7 +3127,10 @@ def main(argv=None) -> int:
     for k in ("fused_encoder", "fused_dense"):
         check(sum(au_launches[k].values()) > 0, f"the audio CLIs did not reach the {k} kernel")
     check(all(r["launches"] > 0 for r in (*au_rows, vae_row)), "an audio kernel row's path did not reach its kernel")
-    kernels += [b1_row, *au_rows, vae_row]
+    for k in ("fused_encoder", "fused_dense"):
+        check(sum(w_launches[k].values()) > 0, f"the marine CLIs did not reach the {k} kernel")
+    check(all(r["launches"] > 0 for r in marine_rows), "a marine kernel row's path did not reach its kernel")
+    kernels += [b1_row, *au_rows, vae_row, *marine_rows]
     for line in engine_lines + score_lines + train_lines + cli_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))

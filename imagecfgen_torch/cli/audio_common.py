@@ -28,23 +28,10 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.checkpoint import (
-    checkpoint_format,
-    load_checkpoint,
-    load_meta,
-    load_train_state,
-    save_train_state,
-)
-from ..core.convert import (
-    audio_scm_from_jax_state_dict,
-    classifier_params_from_jax,
-    gan_state_from_jax,
-    uncond_gan_state_from_jax,
-    vae_params_from_jax,
-    vae_trainer_state_from_jax,
-)
+from ..core.checkpoint import checkpoint_format, load_checkpoint, load_train_state, save_train_state
+from ..core.convert import audio_scm_from_jax_state_dict, gan_state_from_jax, uncond_gan_state_from_jax
 from ..data.audio_mnist import AudioMNISTData
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike
 from ..models import bigan as bigan_configs
 from ..models import classifier as classifier_configs
 from ..models.bigan import BiGAN
@@ -52,6 +39,15 @@ from ..models.classifier import CNNClassifier
 from ..models.vae import ConditionalVAE, audio_mnist_vae_config
 from ..ops.spectral import SpectStats
 from ..scm.audio_mnist import CARDINALITIES, AudioMNISTAttributeSCM
+from .common import (
+    bigan_from_state,
+    load_spect_classifier,
+    load_spect_trainer,
+    load_spect_vae,
+    save_spect_classifier,
+    save_spect_trainer,
+    vae_state_from_jax,
+)
 
 
 def load_audio_dataset(zip_path: Optional[str], synthetic_runs: int = 4) -> AudioMNISTData:
@@ -84,15 +80,6 @@ def validation_images(data: AudioMNISTData, stats: SpectStats, device: DeviceLik
     return stats.to(spects.device).spect_to_img(spects)[..., None], attrs, idx
 
 
-def _stats_tensors(stats: SpectStats) -> Dict[str, torch.Tensor]:
-    return {"spect_mean": stats.mean.detach().cpu(), "spect_std": stats.std.detach().cpu()}
-
-
-def _stats_of(tree: Mapping, device: torch.device) -> SpectStats:
-    return SpectStats(torch.as_tensor(tree["spect_mean"]).to(device),
-                      torch.as_tensor(tree["spect_std"]).to(device))
-
-
 def _vocab_meta(data: AudioMNISTData) -> Dict:
     out = {k: list(map(str, v.categories)) for k, v in data.vocabs.items()}
     out["age_edges"] = [float(e) for e in data.age_binner.edges]
@@ -104,29 +91,20 @@ def _vocab_meta(data: AudioMNISTData) -> Dict:
 
 def save_audio_bigan(path: str, state: Mapping, stats: SpectStats, data: AudioMNISTData,
                      meta: Optional[Dict] = None) -> None:
-    """A ``GANTrainer.state_dict()`` and the statistics."""
-    save_train_state(path, {"trainer": dict(state), **_stats_tensors(stats)},
-                     meta={"kind": "bigan-audio-mnist", "vocabs": _vocab_meta(data),
-                           "carries_rng": state.get("rng") is not None, **(meta or {})})
+    """A ``GANTrainer.state_dict()``, the statistics and the vocabularies."""
+    save_spect_trainer(path, state, stats, "bigan-audio-mnist", {"vocabs": _vocab_meta(data), **(meta or {})})
 
 
 def load_audio_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, SpectStats, Dict]:
     """``(trainer state, statistics on device, meta)`` of either kind of
     file, the state in ``GANTrainer.state_dict()``'s form (from a JAX file:
     no generator)."""
-    device = resolve_device(device)
-    if checkpoint_format(path) == "torch":
-        payload, meta = load_train_state(path, device)
-        return payload["trainer"], _stats_of(payload, device), meta
-    tree, meta = load_checkpoint(path)
-    return gan_state_from_jax(tree), _stats_of(tree, device), meta
+    return load_spect_trainer(path, lambda tree, meta: gan_state_from_jax(tree), device)
 
 
 def load_audio_bigan_model(path: str, device: DeviceLike = None) -> Tuple[BiGAN, SpectStats, Dict]:
     """``(the BiGAN in eval mode, statistics, meta)`` of either kind of
     ``audio-mnist-bigan.tar``, at the ``d`` its meta names."""
-    from .common import bigan_from_state
-
     state, stats, meta = load_audio_bigan(path, device)
     cfg = bigan_configs.audio_mnist_bigan_config(d=meta.get("d", 64))
     return bigan_from_state(state, cfg, stats.mean.device).eval(), stats, meta
@@ -151,24 +129,16 @@ def load_audio_scm(path: str, device: DeviceLike = None) -> AudioMNISTAttributeS
 def save_audio_classifier(path: str, state: Mapping, stats: SpectStats, meta: Dict) -> None:
     """A ``SupervisedTrainer.state_dict()`` and the statistics it trained
     on; ``meta`` names the attribute, the classes and the width."""
-    save_train_state(path, {**dict(state), **_stats_tensors(stats)},
-                     meta={"kind": "audio-mnist-clf", **meta})
+    save_spect_classifier(path, state, stats, {"kind": "audio-mnist-clf", **meta})
 
 
 def load_audio_classifier(path: str, n_classes: int, device: DeviceLike = None
                           ) -> Tuple[CNNClassifier, SpectStats, Dict]:
     """``(the classifier in eval mode, its statistics, meta)`` of either
     kind of file, at the width its meta names."""
-    device = resolve_device(device)
-    if checkpoint_format(path) == "torch":
-        payload, meta = load_train_state(path, device)
-        cfg = classifier_configs.audio_mnist_classifier_config(n_classes, width=meta.get("width", 1.0))
-        model = CNNClassifier(cfg, device)
-        model.load_state_dict(payload["module"])
-        return model.eval(), _stats_of(payload, device), meta
-    tree, meta = load_checkpoint(path)
-    cfg = classifier_configs.audio_mnist_classifier_config(n_classes, width=meta.get("width", 1.0))
-    return classifier_params_from_jax(tree["params"], cfg, device).eval(), _stats_of(tree, device), meta
+    return load_spect_classifier(
+        path, lambda meta: classifier_configs.audio_mnist_classifier_config(n_classes, width=meta.get("width", 1.0)),
+        device)
 
 
 # ------------------------------------------------------------------ VAE
@@ -176,9 +146,7 @@ def load_audio_classifier(path: str, n_classes: int, device: DeviceLike = None
 
 def save_audio_vae(path: str, state: Mapping, stats: SpectStats, meta: Optional[Dict] = None) -> None:
     """A ``VAETrainer.state_dict()`` and the statistics."""
-    save_train_state(path, {"trainer": dict(state), **_stats_tensors(stats)},
-                     meta={"kind": "vae-audio-mnist", "carries_rng": state.get("rng") is not None,
-                           **(meta or {})})
+    save_spect_trainer(path, state, stats, "vae-audio-mnist", meta)
 
 
 def load_audio_vae_state(path: str, device: DeviceLike = None
@@ -188,29 +156,14 @@ def load_audio_vae_state(path: str, device: DeviceLike = None
     (from a JAX file: no generator). A JAX file written before its trainer
     saved the optimiser and the noise key (``carries_rng`` unset) has no
     state to resume (None), and one without statistics gives None for them."""
-    device = resolve_device(device)
-    if checkpoint_format(path) == "torch":
-        payload, meta = load_train_state(path, device)
-        return payload["trainer"], _stats_of(payload, device), meta
-    tree, meta = load_checkpoint(path)
-    state = vae_trainer_state_from_jax(tree) if meta.get("carries_rng") else None
-    return state, (_stats_of(tree, device) if "spect_mean" in tree else None), meta
+    return load_spect_trainer(path, vae_state_from_jax, device)
 
 
 def load_audio_vae_model(path: str, device: DeviceLike = None
                          ) -> Tuple[ConditionalVAE, Optional[SpectStats], Dict]:
     """``(the VAE in eval mode, statistics or None, meta)`` of either kind
     of ``audio-mnist-vae.tar``, at the ``d`` its meta names."""
-    device = resolve_device(device)
-    cfg = audio_mnist_vae_config(d=load_meta(path).get("d", 64))
-    if checkpoint_format(path) == "torch":
-        state, stats, meta = load_audio_vae_state(path, device)
-        model = ConditionalVAE(cfg, device)
-        model.load_state_dict(state["module"])
-        return model.eval(), stats, meta
-    tree, meta = load_checkpoint(path)
-    stats = _stats_of(tree, device) if "spect_mean" in tree else None
-    return vae_params_from_jax(tree["params"], cfg, device).eval(), stats, meta
+    return load_spect_vae(path, lambda meta: audio_mnist_vae_config(d=meta.get("d", 64)), device)
 
 
 def load_audio_vae(path: str, device: DeviceLike = None) -> ConditionalVAE:
@@ -224,21 +177,14 @@ def load_audio_vae(path: str, device: DeviceLike = None) -> ConditionalVAE:
 def save_audio_gan(path: str, state: Mapping, stats: SpectStats, loss_mode: str,
                    meta: Optional[Dict] = None) -> None:
     """An ``UncondGANTrainer.state_dict()`` and the statistics."""
-    save_train_state(path, {"trainer": dict(state), **_stats_tensors(stats)},
-                     meta={"kind": f"uncond-gan-{loss_mode}", "carries_rng": state.get("rng") is not None,
-                           **(meta or {})})
+    save_spect_trainer(path, state, stats, f"uncond-gan-{loss_mode}", meta)
 
 
 def load_audio_gan(path: str, device: DeviceLike = None) -> Tuple[Dict, SpectStats, Dict]:
     """``(trainer state, statistics, meta)`` of either kind of
     ``audio-gan-{mode}.tar``, the state in ``UncondGANTrainer.state_dict()``'s
     form (from a JAX file: no generator)."""
-    device = resolve_device(device)
-    if checkpoint_format(path) == "torch":
-        payload, meta = load_train_state(path, device)
-        return payload["trainer"], _stats_of(payload, device), meta
-    tree, meta = load_checkpoint(path)
-    return uncond_gan_state_from_jax(tree), _stats_of(tree, device), meta
+    return load_spect_trainer(path, lambda tree, meta: uncond_gan_state_from_jax(tree), device)
 
 
 def one_hots(codes: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -19,9 +19,10 @@ from __future__ import annotations
 
 import os
 import struct
+import time
 import warnings
 import zlib
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,12 +35,14 @@ from ..core.convert import (
     gan_state_from_jax,
     scm_from_jax_state_dict,
     vae_params_from_jax,
+    vae_trainer_state_from_jax,
 )
 from ..data.mnist import load_mnist_arrays
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..models.bigan import BiGAN, BiGANConfig
 from ..models.classifier import AutoEncoderConfig, ClassifierConfig, CNNClassifier, ConvAutoEncoder
 from ..models.vae import ConditionalVAE
+from ..ops.spectral import SpectStats
 from ..scm.mnist import MNISTAttributeSCM
 
 # ------------------------------------------------------------------ data
@@ -114,12 +117,53 @@ def load_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, AttributeSca
 
 
 def bigan_from_state(state: Mapping, cfg: BiGANConfig, device: DeviceLike = None) -> BiGAN:
-    """A ``BiGAN`` for ``cfg`` holding the E, G and D of a trainer state."""
+    """A ``BiGAN`` for ``cfg`` holding the E, G and D of a trainer state (E
+    and G alone for a state without D: the ESRF fine-tune's file)."""
     model = BiGAN(cfg, device)
     model.encoder.load_state_dict(state["E"])
     model.generator.load_state_dict(state["G"])
-    model.discriminator.load_state_dict(state["D"])
+    if "D" in state:
+        model.discriminator.load_state_dict(state["D"])
     return model
+
+
+# ------------------------------------------------------------ GAN training
+
+
+def warm_start(trainer, state: Mapping, path: str) -> None:
+    """E, G and D of the trainer state ``state`` (read from ``path``) into
+    ``trainer``'s model."""
+    m = trainer.model
+    for part, module in (("E", m.encoder), ("G", m.generator), ("D", m.discriminator)):
+        module.load_state_dict(state[part])
+    print(f"warm-started from {path}")
+
+
+def fit_gan_epochs(trainer, train: Mapping, out: str, args, load: Callable[[str], Tuple[Mapping, object, Dict]],
+                   save: Callable[[str, Dict, int], None]) -> None:
+    """The BiGAN training CLIs' loop: continue the state in ``out`` when
+    ``args.resume`` finds one there (``load(path)`` gives its trainer state,
+    statistics and meta), then train to epoch ``args.steps`` on ``train`` (from
+    ``trainer.upload_dataset``), calling ``save(path, state, epoch)`` every
+    ``args.checkpoint_every`` epochs and at the last."""
+    start_epoch = 0
+    if args.resume and os.path.exists(out):
+        state, _, meta = load(out)
+        trainer.load_state_dict(state)
+        del state
+        start_epoch = int(meta.get("epoch", 0))
+        print(f"resumed from {out} at epoch {start_epoch} (step {trainer.step})")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    nb = max(len(train["image"]) // args.batch_size, 1)
+    for epoch in range(start_epoch, args.steps):
+        t0 = time.perf_counter()
+        metrics = trainer.fit_epoch(train)  # fetched at its end: the device is done
+        print(f"epoch {epoch + 1}/{args.steps}: D(G(z))={metrics['D_score']:.4f} "
+              f"D(E(x))={metrics['EG_score']:.4f} ({nb / (time.perf_counter() - t0):.1f} steps/s, "
+              f"step {trainer.step})")
+        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+            save(out, trainer.state_dict(), epoch + 1)
+    print(f"saved {out}")
 
 
 # ------------------------------------------------------------------ VAE
@@ -185,6 +229,88 @@ def load_classifier(path: str, cfg: Union[ClassifierConfig, AutoEncoderConfig],
     model = (ConvAutoEncoder if isinstance(cfg, AutoEncoderConfig) else CNNClassifier)(cfg, device)
     model.load_state_dict(load_train_state(path, device)[0]["module"])
     return model.eval()
+
+
+# ------------------------------------------- spectrogram models' artifacts
+#
+# The audio and marine CLIs' files: a trainer's state (or a classifier's) and
+# the spectrogram statistics it trained on; each CLI module names its meta
+# ``kind``, its config and how a JAX file's tree is carried across.
+
+
+def stats_tensors(stats: SpectStats) -> Dict[str, torch.Tensor]:
+    return {"spect_mean": stats.mean.detach().cpu(), "spect_std": stats.std.detach().cpu()}
+
+
+def stats_of(tree: Mapping, device: torch.device) -> Optional[SpectStats]:
+    """The statistics a file holds, on ``device``; None when it holds none."""
+    if "spect_mean" not in tree:
+        return None
+    return SpectStats(torch.as_tensor(tree["spect_mean"]).to(device),
+                      torch.as_tensor(tree["spect_std"]).to(device))
+
+
+def save_spect_trainer(path: str, state: Mapping, stats: SpectStats, kind: str,
+                       meta: Optional[Dict] = None) -> None:
+    """A trainer's ``state_dict()`` (or a part of one) and the statistics,
+    under the meta ``kind``."""
+    save_train_state(path, {"trainer": dict(state), **stats_tensors(stats)},
+                     meta={"kind": kind, "carries_rng": state.get("rng") is not None, **(meta or {})})
+
+
+def load_spect_trainer(path: str, from_jax: Callable[[Mapping, Dict], Optional[Dict]],
+                       device: DeviceLike = None) -> Tuple[Optional[Dict], Optional[SpectStats], Dict]:
+    """``(trainer state, statistics or None, meta)`` of either kind of file;
+    ``from_jax(tree, meta)`` carries a JAX file's tree across (None: it
+    holds no state to resume)."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        return payload["trainer"], stats_of(payload, device), meta
+    tree, meta = load_checkpoint(path)
+    return from_jax(tree, meta), stats_of(tree, device), meta
+
+
+def vae_state_from_jax(tree: Mapping, meta: Dict) -> Optional[Dict]:
+    """A JAX VAE file's ``VAETrainer.state_dict()`` (no generator); None for
+    a file written before its trainer saved the optimiser and the noise key
+    (``carries_rng`` unset): it holds no state to resume."""
+    return vae_trainer_state_from_jax(tree) if meta.get("carries_rng") else None
+
+
+def save_spect_classifier(path: str, state: Mapping, stats: SpectStats, meta: Dict) -> None:
+    """A ``SupervisedTrainer.state_dict()`` and the statistics it trained
+    on; ``meta`` holds the ``kind`` and what the config needs."""
+    save_train_state(path, {**dict(state), **stats_tensors(stats)}, meta=meta)
+
+
+def load_spect_classifier(path: str, config_of: Callable[[Dict], ClassifierConfig], device: DeviceLike = None
+                          ) -> Tuple[CNNClassifier, Optional[SpectStats], Dict]:
+    """``(the classifier in eval mode, its statistics or None, meta)`` of
+    either kind of file, at ``config_of(meta)``."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        model = CNNClassifier(config_of(meta), device)
+        model.load_state_dict(payload["module"])
+        return model.eval(), stats_of(payload, device), meta
+    tree, meta = load_checkpoint(path)
+    return classifier_params_from_jax(tree["params"], config_of(meta), device).eval(), stats_of(tree, device), meta
+
+
+def load_spect_vae(path: str, config_of: Callable[[Dict], BiGANConfig], device: DeviceLike = None
+                   ) -> Tuple[ConditionalVAE, Optional[SpectStats], Dict]:
+    """``(the VAE in eval mode, its statistics or None, meta)`` of either
+    kind of file (a trainer's state, or the JAX package's ``params``), at
+    ``config_of(meta)``."""
+    device = resolve_device(device)
+    if checkpoint_format(path) == "torch":
+        payload, meta = load_train_state(path, device)
+        model = ConditionalVAE(config_of(meta), device)
+        model.load_state_dict(payload["trainer"]["module"])
+        return model.eval(), stats_of(payload, device), meta
+    tree, meta = load_checkpoint(path)
+    return vae_params_from_jax(tree["params"], config_of(meta), device).eval(), stats_of(tree, device), meta
 
 
 # ------------------------------------------------------------ explainers

@@ -19,7 +19,6 @@ from ``--seed``.
 from argparse import ArgumentParser
 import os
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--zip-path", type=str, default=None,
@@ -58,6 +57,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     from .audio_common import load_audio_bigan, load_audio_dataset, prepare_training_arrays, save_audio_bigan
+    from .common import fit_gan_epochs
     from .train_mnist_image_scm import throughput_kw
     from ..models import bigan
     from ..train.gan_trainer import GANTrainConfig, GANTrainer
@@ -75,29 +75,15 @@ def main(argv=None) -> int:
                        d_updates_per_g_update=1, **throughput_kw(args)),
         device, seed=args.seed,
     )
-    out_dir = args.output_path or "."
-    out = os.path.join(out_dir, "audio-mnist-bigan.tar")
-    start_epoch = 0
-    if args.resume and os.path.exists(out):
-        state, _, meta = load_audio_bigan(out, device)
-        trainer.load_state_dict(state)
-        start_epoch = int(meta.get("epoch", 0))
-        print(f"resumed from {out} at epoch {start_epoch} (step {trainer.step})")
-
     train = trainer.upload_dataset(x, attrs)
     del x
-    os.makedirs(out_dir, exist_ok=True)
-    nb = len(train["image"]) // args.batch_size
-    for epoch in range(start_epoch, args.steps):
-        t0 = time.perf_counter()
-        metrics = trainer.fit_epoch(train)  # fetched at its end: the device is done
-        print(f"epoch {epoch + 1}/{args.steps}: D(G(z))={metrics['D_score']:.4f} "
-              f"D(E(x))={metrics['EG_score']:.4f} ({nb / (time.perf_counter() - t0):.1f} steps/s, "
-              f"step {trainer.step})")
-        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
-            save_audio_bigan(out, trainer.state_dict(), stats, data,
-                             meta={"epoch": epoch + 1, "d": args.d, "compute_dtype": args.compute_dtype})
-    print(f"saved {out}")
+
+    def save(path, state, epoch):
+        save_audio_bigan(path, state, stats, data,
+                         meta={"epoch": epoch, "d": args.d, "compute_dtype": args.compute_dtype})
+
+    fit_gan_epochs(trainer, train, os.path.join(args.output_path or ".", "audio-mnist-bigan.tar"), args,
+                   lambda path: load_audio_bigan(path, device), save)
     return 0
 
 

@@ -1,0 +1,93 @@
+"""Train the 256^2 whale-call conditional VAE (port of ``train_whale_vae.py``).
+
+    python -m imagecfgen_torch.cli.train_whale_vae [--nocall-dir N --shotgun-dir S --upcall-dir U] \
+        [--output-path O] [--steps 200] [--d 64] [--batch-size 32] [--kl-weight 1] [--resume] \
+        [--device cuda|cpu]
+
+``--steps`` counts epochs. The training windows' spectrograms are computed
+once on the device and normalised as the BiGAN's are;
+``train.vae_trainer.VAETrainer`` on ``whale_vae_config(d)`` (Adam with
+optax's default betas, ``--num-samples-per-step`` reparameterised draws,
+``--kl-weight``). The encoder's trunk needs a gradient here, so it runs as
+its ``PlanSequential`` (cuDNN convs), never through the ``fused_encoder``
+kernel. ``whale-vae.tar`` holds the trainer's whole state (so ``--resume``
+continues it bit for bit on the same device), the statistics, ``d`` and the
+epoch; ``--resume`` also takes over a resumable file that the JAX package
+wrote, which carries no generator: the run draws its noise anew from
+``--seed``.
+"""
+from argparse import ArgumentParser
+import os
+import sys
+import time
+
+parser = ArgumentParser(description=__doc__.splitlines()[0])
+parser.add_argument("--nocall-dir", type=str, default=None)
+parser.add_argument("--shotgun-dir", type=str, default=None)
+parser.add_argument("--upcall-dir", type=str, default=None)
+parser.add_argument("--synthetic-clips", type=int, default=32,
+                    help="per-class clip count of the synthetic stand-in (when no recordings are given)")
+parser.add_argument("--steps", type=int, default=200, help="epochs")
+parser.add_argument("--batch-size", type=int, default=32)
+parser.add_argument("--l-rate", type=float, default=1e-4)
+parser.add_argument("--num-samples-per-step", type=int, default=4)
+parser.add_argument("--kl-weight", type=float, default=1.0)
+parser.add_argument("--output-path", type=str, default="")
+parser.add_argument("--checkpoint-every", type=int, default=10)
+parser.add_argument("--d", type=int, default=64, help="channel multiplier")
+parser.add_argument("--seed", type=int, default=0)
+parser.add_argument("--resume", action="store_true",
+                    help="continue from an existing whale-vae.tar in --output-path")
+parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+
+
+def main(argv=None) -> int:
+    args = parser.parse_args(argv)
+    import torch
+
+    from ..device import resolve_device
+
+    device = resolve_device(args.device)
+    from .whale_common import collect_whale_arrays, load_whale_dataset, load_whale_vae_state, save_whale_vae
+    from ..models.vae import ConditionalVAE, whale_vae_config
+    from ..train.vae_trainer import VAETrainConfig, VAETrainer
+
+    data = load_whale_dataset(args.nocall_dir, args.shotgun_dir, args.upcall_dir,
+                              synthetic_clips=args.synthetic_clips)
+    x, calls, stats = collect_whale_arrays(data, "train", device=device)
+    model = ConditionalVAE(whale_vae_config(d=args.d), device, torch.Generator().manual_seed(args.seed))
+    trainer = VAETrainer(
+        model,
+        VAETrainConfig(learning_rate=args.l_rate, batch_size=args.batch_size,
+                       num_samples_per_step=args.num_samples_per_step, kl_weight=args.kl_weight),
+        device, seed=args.seed + 1,
+    )
+    out_dir = args.output_path or "."
+    out = os.path.join(out_dir, "whale-vae.tar")
+    os.makedirs(out_dir, exist_ok=True)
+    start_epoch = 0
+    if args.resume and os.path.exists(out):
+        state, meta = load_whale_vae_state(out, device)
+        if state is None:
+            print(f"warning: {out} predates resumable VAE checkpoints; not resuming")
+        else:
+            trainer.load_state_dict(state)
+            start_epoch = int(meta.get("epoch", 0))
+            print(f"resumed from {out} at epoch {start_epoch} (step {trainer.step})")
+
+    train = trainer.upload_dataset(x, {"call_type": calls})
+    del x
+    nb = max(len(train["image"]) // args.batch_size, 1)
+    for epoch in range(start_epoch, args.steps):
+        t0 = time.perf_counter()
+        metrics = trainer.fit_epoch(train)  # fetched at its end: the device is done
+        print(f"epoch {epoch + 1}/{args.steps}: -elbo={metrics['neg_elbo']:.2f} "
+              f"({nb / (time.perf_counter() - t0):.1f} steps/s)")
+        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+            save_whale_vae(out, trainer.state_dict(), stats, meta={"epoch": epoch + 1, "d": args.d})
+    print(f"saved {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -98,9 +98,35 @@ def load_train_state(path: str, device: DeviceLike = None) -> Tuple[Dict, Dict]:
     device = resolve_device(device)
     with open(path, "rb") as f:
         meta = _read_meta(f, path, (TORCH_MAGIC,))
-        # the archive's offsets count from its own first byte
-        state = torch.load(io.BytesIO(f.read()), map_location=device, weights_only=True)
+        # read in place: an ESRF training state is gigabytes, and a copy of
+        # the payload in host memory would hold it twice while it loads
+        state = torch.load(_Payload(f, f.tell()), map_location=device, weights_only=True)
     return state, meta
+
+
+class _Payload(io.RawIOBase):
+    """The file from ``offset`` on, as a file of its own: the archive that
+    ``torch.load`` reads counts its offsets from its own first byte."""
+
+    def __init__(self, f, offset: int):
+        super().__init__()
+        self._f, self._offset = f, offset
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def tell(self) -> int:
+        return self._f.tell() - self._offset
+
+    def seek(self, pos: int, whence: int = io.SEEK_SET) -> int:
+        self._f.seek(self._offset + pos if whence == io.SEEK_SET else pos, whence)
+        return self.tell()
+
+    def readinto(self, buf) -> int:
+        return self._f.readinto(buf)
 
 
 # ------------------------------------------------- the JAX package's files

@@ -4,7 +4,7 @@
 - ``Encoder``:  image ++ attribute channels -> conv plan -> (B,1,1,latent)
 - ``Generator``: latent ++ attribute vector -> either a 1x1-spatial deconv
   plan (``gen_input="spatial"``, MNIST) or a dense-stem plan
-  (``gen_input="dense"``, AudioMNIST) -> image in [-1,1]
+  (``gen_input="dense"``, AudioMNIST, whale calls, ESRF) -> image in [-1,1]
 - ``Discriminator``: joint D(x, z, c) = dxz(dx(x ++ attribute channels) ++
   dz(z)), logits ``(B, 1)``; dropout and batch norm are active when
   ``train`` (MNIST's ``dx`` has both).
@@ -17,8 +17,9 @@ on the card, its plain version on the CPU — where the JAX ``Encoder`` runs
 the encoder's input or parameters ask for one, the trunk runs as its
 ``PlanSequential`` instead, as the JAX ``Encoder`` always does.
 
-This slice carries ``mnist_bigan_config`` and ``audio_mnist_bigan_config``;
-the other domains' configs come with later slices.
+The configs are the JAX package's four: ``mnist_bigan_config`` (28^2),
+``audio_mnist_bigan_config`` (128^2), ``whale_bigan_config`` (256^2) and
+``esrf_bigan_config`` (512^2).
 """
 from __future__ import annotations
 
@@ -301,6 +302,117 @@ def audio_mnist_bigan_config(d: int = 64, latent_dim: int = 512,
         image_channels=1,
         latent_dim=latent_dim,
         attr_spec=AUDIO_MNIST_SPEC,
+        enc_plan=enc_plan,
+        gen_plan=gen_plan,
+        dx_plan=enc_plan,
+        dz_plan=dz_plan,
+        dxz_plan=dxz_plan,
+        init_std=0.001,
+        compute_dtype=compute_dtype,
+        gen_input="dense",
+    )
+
+
+WHALE_SPEC = AttributeSpec.create(call_type=3)
+ESRF_SPEC = AttributeSpec.create(has_boat=2, closest_boat=0)
+
+
+def whale_bigan_config(d: int = 64, latent_dim: int = 512,
+                       compute_dtype: torch.dtype = torch.float32) -> BiGANConfig:
+    """256x256 whale-call spectrogram config (NARW nocall/shotgun/upcall):
+    the same plans as the JAX package's ``whale_bigan_config``. Only
+    ``call_type`` is embedded, so E's input has 2 channels; E is seven
+    k5/s2/p1 convs 256 -> ... -> 1; D's x tower is seven such convs with
+    another channel plan (d, 2d, 2d, 4d, 8d, 16d, latent); G is a dense stem
+    (512 + 256 -> 256d) -> (4,4,16d) -> six k5/s2/p2(+1) deconvs 4 -> 256;
+    init N(0, 0.001)."""
+    lr = ("lrelu", 0.2)
+    enc_plan = (
+        ("conv", d, 5, 2, 1), lr,
+        ("conv", 2 * d, 5, 2, 1), lr,
+        ("conv", 4 * d, 5, 2, 1), lr,
+        ("conv", 8 * d, 5, 2, 1), lr,
+        ("conv", 16 * d, 5, 2, 1), lr,
+        ("conv", 16 * d, 5, 2, 1), lr,
+        ("conv", latent_dim, 5, 2, 1),
+    )
+    gen_plan = (
+        ("dense", 256 * d),
+        ("reshape", (4, 4, 16 * d)), lr,
+        ("convT", 16 * d, 5, 2, 2, 1), lr,
+        ("convT", 8 * d, 5, 2, 2, 1), lr,
+        ("convT", 4 * d, 5, 2, 2, 1), lr,
+        ("convT", 2 * d, 5, 2, 2, 1), lr,
+        ("convT", d, 5, 2, 2, 1), lr,
+        ("convT", 1, 5, 2, 2, 1),
+        ("tanh",),
+    )
+    dx_plan = (
+        ("conv", d, 5, 2, 1), lr,
+        ("conv", 2 * d, 5, 2, 1), lr,
+        ("conv", 2 * d, 5, 2, 1), lr,
+        ("conv", 4 * d, 5, 2, 1), lr,
+        ("conv", 8 * d, 5, 2, 1), lr,
+        ("conv", 16 * d, 5, 2, 1), lr,
+        ("conv", latent_dim, 5, 2, 1),
+    )
+    dz_plan = (("conv", latent_dim, 1, 1, 0), lr, ("conv", latent_dim, 1, 1, 0), lr)
+    dxz_plan = (("conv", 1024, 1, 1, 0), lr, ("conv", 1024, 1, 1, 0), lr, ("conv", 1, 1, 1, 0))
+    return BiGANConfig(
+        image_size=(256, 256),
+        image_channels=1,
+        latent_dim=latent_dim,
+        attr_spec=WHALE_SPEC,
+        enc_plan=enc_plan,
+        gen_plan=gen_plan,
+        dx_plan=dx_plan,
+        dz_plan=dz_plan,
+        dxz_plan=dxz_plan,
+        init_std=0.001,
+        compute_dtype=compute_dtype,
+        gen_input="dense",
+    )
+
+
+def esrf_bigan_config(d: int = 64, latent_dim: int = 512,
+                      compute_dtype: torch.dtype = torch.float32) -> BiGANConfig:
+    """512x512 ESRF marine-acoustics config (boat presence and proximity):
+    the same plans as the JAX package's ``esrf_bigan_config``. ``has_boat``
+    is embedded and ``closest_boat`` is a continuous constant channel in E
+    and D (E's input has 3 channels) and a scalar in G (its dense input is
+    512 + 256 + 1); E and D's x tower are eight k5/s2/p1 convs
+    512 -> ... -> 1, up to 64d channels; G is a dense stem -> (4,4,16d) ->
+    seven deconvs 4 -> 512; init N(0, 0.001)."""
+    lr = ("lrelu", 0.2)
+    enc_plan = (
+        ("conv", d, 5, 2, 1), lr,
+        ("conv", 2 * d, 5, 2, 1), lr,
+        ("conv", 4 * d, 5, 2, 1), lr,
+        ("conv", 8 * d, 5, 2, 1), lr,
+        ("conv", 16 * d, 5, 2, 1), lr,
+        ("conv", 32 * d, 5, 2, 1), lr,
+        ("conv", 64 * d, 5, 2, 1), lr,
+        ("conv", latent_dim, 5, 2, 1),
+    )
+    gen_plan = (
+        ("dense", 256 * d),
+        ("reshape", (4, 4, 16 * d)), lr,
+        ("convT", 16 * d, 5, 2, 2, 1), lr,
+        ("convT", 8 * d, 5, 2, 2, 1), lr,
+        ("convT", 4 * d, 5, 2, 2, 1), lr,
+        ("convT", 2 * d, 5, 2, 2, 1), lr,
+        ("convT", d, 5, 2, 2, 1), lr,
+        ("convT", d, 5, 2, 2, 1), lr,
+        ("convT", 1, 5, 2, 2, 1),
+        ("tanh",),
+    )
+    dz_plan = (("conv", latent_dim, 1, 1, 0), lr, ("conv", latent_dim, 1, 1, 0), lr)
+    dxz_plan = (("conv", 1024, 1, 1, 0), lr, ("conv", 1024, 1, 1, 0), lr, ("conv", 1, 1, 1, 0))
+    return BiGANConfig(
+        image_size=(512, 512),
+        image_channels=1,
+        latent_dim=latent_dim,
+        attr_spec=ESRF_SPEC,
         enc_plan=enc_plan,
         gen_plan=gen_plan,
         dx_plan=enc_plan,

@@ -2,8 +2,9 @@
 ``imagecfgen_tpu/models/vae.py``).
 
 One parametric implementation of the reference's per-domain VAEs (28^2
-``deepscm_vae/mnist.py``, 128^2 ``deepscm_vae/audio_mnist.py``): the encoder
-is the BiGAN encoder trunk plus ``cfg.vae_trunk_tail`` (a LeakyReLU) and
+``deepscm_vae/mnist.py``, 128^2 ``deepscm_vae/audio_mnist.py``, 256^2
+``deepscm_vae/whalecalls.py``): the encoder is the BiGAN encoder trunk plus
+``cfg.vae_trunk_tail`` (a LeakyReLU; none for the whale VAE) and
 1x1-conv mean and log-variance heads (``deepscm_vae/mnist.py:42-56``), the
 decoder mirrors the BiGAN generator, and the likelihood is an isotropic
 Gaussian centred on the decoder's output with a fixed log-variance
@@ -22,8 +23,8 @@ batch **batch-major** (eps ``(B, S, ...)`` -> ``(B*S, ...)``, the decoder
 once at batch B*S), minus the analytic KL to N(0, I). Its noise comes from
 an explicit ``torch.Generator`` or is injected (``eps``).
 
-``whale_vae_config`` comes with the whale slice (``whale_bigan_config`` is
-not ported yet).
+``whale_vae_config``'s tail is empty: its whole trunk, with no LeakyReLU
+after it, is the kernel's when no gradient is recorded.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..ops.fused_encoder import fused_encoder_forward, plan_conv_ops
-from .bigan import BiGANConfig, Generator, audio_mnist_bigan_config, mnist_bigan_config
+from .bigan import BiGANConfig, Generator, audio_mnist_bigan_config, mnist_bigan_config, whale_bigan_config
 from .layers import AttributeChannels, PlanSequential
 
 
@@ -171,3 +172,12 @@ def audio_mnist_vae_config(d: int = 64, latent_dim: int = 512,
     cfg = audio_mnist_bigan_config(d=d, latent_dim=latent_dim, compute_dtype=compute_dtype)
     return dataclasses.replace(cfg, init_std=1e-4)
 
+
+
+def whale_vae_config(d: int = 64, latent_dim: int = 512,
+                     compute_dtype: torch.dtype = torch.float32) -> BiGANConfig:
+    """The 256^2 whale-call VAE (``deepscm_vae/whalecalls.py:342-370``): the
+    whale BiGAN trunk + 1x1 mean / log-var heads, init N(0, 1e-4), and no
+    LeakyReLU after the trunk (``deepscm_vae/whalecalls.py:249-263``)."""
+    cfg = whale_bigan_config(d=d, latent_dim=latent_dim, compute_dtype=compute_dtype)
+    return dataclasses.replace(cfg, init_std=1e-4, vae_trunk_tail=())

@@ -155,6 +155,7 @@ def _recipe(in_shape, kernel_shapes, conv_ops, first: int, dtype: torch.dtype, s
                  plan.tile, plan.split, int(plan.vec)]
         h, w, c = conv_out_size(h, k, stride, pad), conv_out_size(w, k, stride, pad), co
         _check(h > 0 and w > 0, f"layer {i}: empty output")
+        _check(bsz * h * w * c < 2 ** 31, f"layer {i}: an output of 2^31 elements or more")
         out_shapes.append((bsz, h, w, c))
     n = len(conv_ops)
     return (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * n)(*slopes), tuple(out_shapes)

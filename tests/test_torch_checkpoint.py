@@ -265,3 +265,26 @@ def test_loader_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         tckpt.load_train_state(path)
     state, _ = tckpt.load_train_state(path, device="cpu")
     assert torch.equal(state["w"], torch.ones(2))
+
+
+def test_a_training_state_loads_in_place(tmp_path):
+    """``load_train_state`` hands ``torch.load`` the file at the payload's
+    offset instead of a copy of the payload: the host holds an ESRF-size
+    state once. Python's own allocations while a 16 MiB state loads stay
+    under an eighth of it (a copy of the payload alone would be all of it),
+    and the tensors come back bit for bit after metas of several lengths."""
+    import tracemalloc
+
+    state = {"E": {"w": torch.randn(4, 1024, 1024), "b": torch.arange(7.0)}, "step": 3,
+             "rng": torch.Generator().manual_seed(2).get_state()}
+    for meta in ({}, {"kind": "bigan-esrf", "d": 64, "pad": "x" * 1001}):
+        path = str(tmp_path / "big.ckpt")
+        tckpt.save_train_state(path, state, meta=meta)
+        tracemalloc.start()
+        got, got_meta = tckpt.load_train_state(path, "cpu")
+        _, peak = tracemalloc.get_traced_memory()
+        tracemalloc.stop()
+        assert got_meta == meta and got["step"] == 3
+        assert torch.equal(got["E"]["w"], state["E"]["w"]) and torch.equal(got["E"]["b"], state["E"]["b"])
+        assert torch.equal(got["rng"], state["rng"])
+        assert peak < state["E"]["w"].nbytes / 8, f"{peak} bytes of Python allocations while loading"

@@ -140,3 +140,26 @@ def test_cuda_source_names_the_kernel_it_replaces():
     assert 'extern "C" int fused_encoder_run' in text
     for banned in ("cudnn", "cublas", "torch/extension.h"):
         assert banned not in text.lower()
+
+
+def test_every_layers_output_is_held_under_2_to_the_31():
+    """The launch recipe refuses a layer whose output reaches 2^31 elements
+    (the kernel indexes in 32 bits) even when the features stay under it:
+    here 8192^2 inputs of one channel, 64 channels out."""
+    plan = (("conv", 64, 1, 1, 0),)
+    conv_ops = tfe.plan_conv_ops(plan)
+    with pytest.raises(ValueError, match=r"layer 0: an output of 2\^31 elements or more"):
+        tfe._recipe((1, 8192, 8192, 1), ((64, 1, 1, 1),), conv_ops, 0, torch.float32, 132)
+    # 31 channels out stay under it
+    tfe._recipe((1, 8192, 8192, 1), ((31, 1, 1, 1),), conv_ops, 0, torch.float32, 132)
+    # the ESRF trunk at its training batch: every layer under 2^31
+    from imagecfgen_torch.models.bigan import esrf_bigan_config
+
+    eplan = esrf_bigan_config().enc_plan
+    shapes, c = [], 3
+    for op in eplan:
+        if op[0] == "conv":
+            shapes.append((op[1], c, op[2], op[2]))
+            c = op[1]
+    out = tfe._recipe((16, 512, 512, 3), tuple(shapes), tfe.plan_conv_ops(eplan), 0, torch.float32, 132)[2]
+    assert out[0] == (16, 255, 255, 64) and out[-1] == (16, 1, 1, 512)

@@ -257,3 +257,36 @@ def test_resolve_device():
 
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def test_sources_cover_the_marine_slice():
+    """Pin that the glob reaches the marine data paths, the CLIs' shared
+    module and the nine marine CLIs (the ESRF CSV is read without pandas)."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    clis = ("whale_common", "train_whale_clf", "train_whale_bigan", "train_whale_vae", "whale_generator_score",
+            "whale_cf_score", "finetune_whale_bigan", "train_esrf_bigan", "finetune_esrf_bigan", "esrf_quality")
+    assert {f"imagecfgen_torch/cli/{m}.py" for m in clis} <= names
+    assert {"imagecfgen_torch/data/whalecalls.py", "imagecfgen_torch/data/esrf.py"} <= names
+
+
+@pytest.mark.parametrize("entry", ["whale_stream", "esrf_stream", "whale_BiGAN", "esrf_BiGAN", "whale_VAE"])
+def test_marine_slice_entry_points_raise_when_no_gpu(monkeypatch, entry):
+    from imagecfgen_torch.data.esrf import EsrfStation
+    from imagecfgen_torch.data.whalecalls import WhaleCallData
+    from imagecfgen_torch.models.bigan import BiGAN, esrf_bigan_config, whale_bigan_config
+    from imagecfgen_torch.models.vae import ConditionalVAE, whale_vae_config
+
+    whale = WhaleCallData(synthetic_clips_per_class=1)
+    station = EsrfStation(synthetic_recordings=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "whale_stream":
+            next(whale.stream())
+        elif entry == "esrf_stream":
+            next(station.stream())
+        elif entry == "whale_BiGAN":
+            BiGAN(whale_bigan_config(2, 32))
+        elif entry == "esrf_BiGAN":
+            BiGAN(esrf_bigan_config(2, 32))
+        else:
+            ConditionalVAE(whale_vae_config(2, 32))
