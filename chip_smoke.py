@@ -286,6 +286,31 @@ S1. the ESRF CLIs: ``train_esrf_bigan --max-batches 1`` (remat on, batch 16,
     against its plain version on the trained weights and on fan-in weights,
     timed.
 
+and for data parallelism on the main path's trainer (the full-width MNIST
+BiGAN, batch 64, ``d_updates_per_g_update=3``), after the marine phases:
+
+D1. two gloo ranks on the one card, spawned by the script, against one
+    process: 3 steps on the same global batches with the same noise
+    injected (drawn once, for the global batch); every rank's E, G and D
+    alike, each within the CPU tests' tolerance of the one process's (all
+    but one element in a thousand within rtol 2e-3 / atol 2e-4, none beyond
+    ``2 lr`` an Adam update), the mean of the ranks' metrics likewise; one
+    ``fused_encoder`` launch a step on each rank, and the kernel against its
+    plain version at a rank's shard, (32, 28, 28, 5), timed (the
+    ``fused_encoder:dp_rank`` row). gloo carries the card's tensors (its
+    all-reduce and broadcast), so the two ranks share the card;
+D2. an NCCL group of one, joined through ``parallel.init_from_env`` as
+    under ``torchrun``, against no group: 3 steps bit for bit (cuDNN's
+    deterministic algorithms), the collectives of three steps by kind, and
+    steps/s of 40 steps of each, in turns, then 10 steps of each under
+    ``torch.profiler``: device time, host ops, NCCL's kernels and the host
+    time of each all-reduce op a step;
+D3. ``train_mnist_image_scm`` for one epoch on C1's rows under ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1`` (``torchrun``)
+    and as a plain run, both with one seed and under cuDNN's deterministic
+    algorithms (a two-line driver runs the CLI module as ``__main__``): the
+    two checkpoints equal bit for bit.
+
 The ``kernels`` line lists every kernel row (``launches``: the count of the
 row's own path, read around it alone: the serving path's, the explainer
 CLIs' for ``fused_encoder:b1`` at (1, 28, 28, 5), ``audiomnist_cf_eval``'s
@@ -293,7 +318,8 @@ for ``fused_encoder:audio_cf_eval``, the bf16 training CLI's for
 ``fused_encoder:audio_train_bf16``, since no serving CLI runs the kernel in
 bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``, the marine
 CLIs' for ``fused_encoder:whale``, ``fused_encoder:whale_vae``,
-``fused_encoder:esrf`` and ``fused_dense:narw``; ``train_launches`` over ``train_steps``: the training path's;
+``fused_encoder:esrf`` and ``fused_dense:narw``, and D1's two ranks' for
+``fused_encoder:dp_rank``; ``train_launches`` over ``train_steps``: the training path's;
 ``cli_launches``: each CLI run's at the row's shape, C, M, X and AU phases;
 the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
 CLIs' at every batch); the last line of output
@@ -1391,9 +1417,10 @@ def printed_score(text: str, what: str) -> float:
     return value
 
 
-def profile_call(fn, per: int, label: str, dev):
+def profile_call(fn, per: int, label: str, dev, extra=None):
     """Kernels, device busy time and the idle share of one call of ``fn``
-    under torch.profiler, each a ``per``-th of the call's (its steps)."""
+    under torch.profiler, each a ``per``-th of the call's (its steps);
+    ``extra(events, per)``: more figures from the call's events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1401,11 +1428,29 @@ def profile_call(fn, per: int, label: str, dev):
         fn()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    return {"profiled": label, "kernels_per_step": sum(e.count for e in device) / per,
-            "device_ms_per_step": busy_ms / per, "profiled_ms_per_step": wall_ms / per, "idle": 1 - busy_ms / wall_ms}
+    out = {"profiled": label, "kernels_per_step": sum(e.count for e in device) / per,
+           "device_ms_per_step": busy_ms / per, "profiled_ms_per_step": wall_ms / per, "idle": 1 - busy_ms / wall_ms}
+    if extra:
+        out.update(extra(events, per))
+    return out
+
+
+def collective_split(events, per: int) -> dict:
+    """A step's collective work in a profile: NCCL's kernels on the card, and
+    each host op of the all-reduces (nested ops are listed apart, each with
+    its total host time, its children's included)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    nccl = [e for e in events if e.device_type == cuda and "nccl" in e.key.lower()]
+    host = {e.key: {"calls": e.count / per, "host_ms": e.cpu_time_total / 1e3 / per}
+            for e in events if e.device_type != cuda
+            and re.search(r"all_?reduce|nccl|sumacross|param_comms|broadcast|barrier", e.key, re.I)}
+    return {"host_ops_per_step": sum(e.count for e in events if e.device_type != cuda) / per,
+            "nccl_kernels_per_step": sum(e.count for e in nccl) / per,
+            "nccl_device_ms_per_step": sum(e.self_device_time_total for e in nccl) / 1e3 / per,
+            "collective_host_ops_per_step": host}
 
 
 def profile_steps(train_step, data, bsz: int, label: str, dev, steps: int = 6):
@@ -2927,6 +2972,275 @@ def marine_phases(args, dev, card, peak, tmp: str):
     return launches, lines, rows
 
 
+# ------------------------------------------------------------------ phase D
+D_STEPS = 3  # steps of D1 and D2's compared runs
+D_RATE_STEPS = 40  # steps of each timed run of D2
+D_PROFILE_STEPS = 10  # steps of each profiled run of D2
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+            "GROUP_RANK", "ROLE_RANK", "TORCHELASTIC_RUN_ID")
+
+
+def dp_trainer(dev, seed: int, mesh=None):
+    """The main path's trainer: the full-width MNIST BiGAN, batch 64,
+    ``d_updates_per_g_update=3``."""
+    from imagecfgen_torch.models.bigan import BiGAN, mnist_bigan_config
+    from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    return GANTrainer(BiGAN(mnist_bigan_config(), dev, seeded(seed)),
+                      GANTrainConfig(batch_size=64, d_updates_per_g_update=3), dev, seed=seed, mesh=mesh)
+
+
+def dp_steps(trainer, steps, dev):
+    """``steps``: ``[(batch, z, masks)]``, global, numpy; each step run with
+    that noise injected. Returns each step's metrics (this rank's shard's)."""
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    out = []
+    for batch, z, masks in steps:
+        m = trainer.train_step({"image": put(batch["image"]), "attrs": {k: put(v) for k, v in batch["attrs"].items()}},
+                               z=put(z), masks=[[put(k) for k in f] for f in masks])
+        out.append({k: v.item() for k, v in m.items()})
+    return out
+
+
+def d1_rank(mesh, steps, seed: int, device: str):
+    """D1 on one rank: :func:`dp_steps` on the rank's trainer; its metrics,
+    E, G and D, and its ``fused_encoder`` launches."""
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    trainer = dp_trainer(dev, seed, mesh)
+    fused_encoder_forward.launches = 0
+    metrics = dp_steps(trainer, steps, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    state = trainer.state_dict()
+    return {"metrics": metrics, "params": {f"{p}.{n}": v for p in "EGD" for n, v in state[p].items()},
+            "launches": fused_encoder_forward.launches, "rng": trainer.rng.get_state()}
+
+
+def dp_counts(what: str, got, want) -> dict:
+    """How far the parameters and buffers ``got`` (a ``W``-rank run's, or
+    a second process's) lie from ``want``'s: the elements beyond rtol 2e-3 /
+    atol 2e-4, the largest difference of a parameter and of a batch-norm
+    running statistic, and the tensors equal bit for bit; printed."""
+    misses = size = equal = 0
+    worst = {"parameter": 0.0, "buffer": 0.0}
+    for name, w in want.items():
+        g, w = np.asarray(got[name], np.float64), np.asarray(w, np.float64)
+        err = np.abs(g - w)
+        misses += int((err > 2e-4 + 2e-3 * np.abs(w)).sum())
+        size += w.size
+        equal += int(np.array_equal(g, w))
+        kind = "buffer" if name.endswith((".mean", ".var")) else "parameter"
+        worst[kind] = max(worst[kind], float(err.max()))
+    print(f"{what}: {misses} of {size} elements beyond rtol 2e-3 / atol 2e-4, the largest difference "
+          f"{worst['parameter']:.3e} (parameters), {worst['buffer']:.3e} (batch-norm statistics); "
+          f"{equal} of {len(want)} tensors bit for bit")
+    return {"elements_off": misses, "elements": size, "max_abs_diff": worst["parameter"],
+            "max_abs_diff_bn_stats": worst["buffer"], "tensors_equal": equal, "tensors": len(want)}
+
+
+# D3's entry point: the CLI module run as __main__ under cuDNN's deterministic
+# algorithms, so that two processes can be compared bit for bit
+D3_DRIVER = """import runpy, sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.use_deterministic_algorithms(True, warn_only=True)
+sys.argv[0] = "train_mnist_image_scm"
+runpy.run_module("imagecfgen_torch.cli.train_mnist_image_scm", run_name="__main__", alter_sys=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def d2_phase(dev, seed: int, x, attrs, card) -> dict:
+    """D2: the main path's trainer in an NCCL group of one, joined through
+    ``init_from_env``, against no group: bit for bit after ``D_STEPS``
+    steps, the collectives of three steps by kind, steps/s in turns, and
+    both under torch.profiler (device time, NCCL's kernels, the host time
+    of each collective op). Returns its line."""
+    import torch.distributed as dist
+
+    from imagecfgen_torch.parallel.launch import record_collectives
+    from imagecfgen_torch.parallel.mesh import init_from_env
+
+    saved = {k: os.environ.get(k) for k in DIST_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        mesh, mdev = init_from_env("cuda")
+        check(mesh.group is not None and mesh.world == 1 and mdev == torch.device("cuda", 0),
+              f"D2: init_from_env gave {mesh.world} ranks on {mdev}")
+        backend = dist.get_backend(mesh.group)
+        xd, ad = x.to(dev), {k: v.to(dev) for k, v in attrs.items()}
+        batches = [{"image": xd[64 * i:64 * (i + 1)], "attrs": {k: v[64 * i:64 * (i + 1)] for k, v in ad.items()}}
+                   for i in range(D_STEPS)]
+        states = {}
+        with deterministic():
+            for label, m in (("no group", None), ("NCCL world 1", mesh)):
+                tr = dp_trainer(dev, seed, m)
+                for b in batches:
+                    tr.train_step(b)
+                torch.cuda.synchronize()
+                states[label] = tr.state_dict()
+        for part in ("E", "G", "D", "opt_eg", "opt_d", "step", "rng"):
+            same_tree(states["NCCL world 1"][part], states["no group"][part], f"D2 {part}")
+        print(f"D2: an NCCL group of one ({backend}) and no group: every parameter, buffer, Adam moment "
+              f"and the generator bit for bit after {D_STEPS} steps")
+        grouped = dp_trainer(dev, seed, mesh)
+        grouped.train_step(batches[0])
+        torch.cuda.synchronize()
+        with record_collectives() as log:
+            grouped.train_step(batches[0])  # step 1: no E+G update at d = 3
+            grouped.train_step(batches[1])
+            grouped.train_step(batches[2])  # step 3: E+G and two D updates
+            torch.cuda.synchronize()
+        print(f"D2: collectives of steps 1-3 by kind: {json.dumps(log)}")
+        check(set(log) == {"all_reduce"}, f"D2: a collective other than the all-reduce: {sorted(log)}")
+        rates = {}
+        for label, m in (("no group", None), ("NCCL world 1", mesh), ("NCCL world 1", mesh), ("no group", None)):
+            tr = dp_trainer(dev, seed, m)
+            tr.train_step(batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(D_RATE_STEPS):
+                tr.train_step(batches[i % D_STEPS])
+            torch.cuda.synchronize()
+            rates.setdefault(label, []).append(D_RATE_STEPS / (time.perf_counter() - t0))
+        print(f"D2: steps/s, no group {rates['no group']}, NCCL world 1 {rates['NCCL world 1']} ({card})")
+        profiles = {}
+        for label, m in (("no group", None), ("NCCL world 1", mesh)):
+            tr = dp_trainer(dev, seed, m)
+            tr.train_step(batches[0])
+            torch.cuda.synchronize()
+            profiles[label] = profile_call(
+                lambda: [tr.train_step(batches[i % D_STEPS]) for i in range(D_PROFILE_STEPS)],
+                D_PROFILE_STEPS, f"D2 {label}, {D_PROFILE_STEPS} steps after one", dev, extra=collective_split)
+            print(f"D2 profile, {label}: {json.dumps(profiles[label])} ({card})")
+        return {"data_parallel": "D2", "backend": backend, "world": 1, "steps_compared": D_STEPS,
+                "bit_for_bit": True, "collectives_steps_1_3": log, "steps_per_s": rates,
+                "rate_steps": D_RATE_STEPS, "batch": 64, "profiles": profiles, "card": card}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def parallel_phases(args, dev, card, peak, tmp: str):
+    """Phases D1-D3: data parallelism on the main path's trainer. Returns
+    (lines, the ``fused_encoder:dp_rank`` row)."""
+    import torch.distributed as dist
+
+    from imagecfgen_torch.cli.common import load_bigan
+    from imagecfgen_torch.models.bigan import mnist_bigan_config
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward
+    from imagecfgen_torch.parallel.launch import record_collectives, run_ranks
+    from imagecfgen_torch.parallel.mesh import init_from_env
+
+    lines, seed = [], args.seed + 90
+    cfg = mnist_bigan_config()
+    rng = np.random.default_rng(seed)
+    x, attrs = gan_data(cfg, 64 * D_STEPS, rng, torch.device("cpu"))
+    # --------------------------------- D1. two gloo ranks on the one card
+    ref = dp_trainer(dev, seed)
+    steps = []
+    for i in range(D_STEPS):
+        z, masks = ref.draw_noise(64)
+        rows = slice(64 * i, 64 * (i + 1))
+        steps.append(({"image": x[rows].numpy(), "attrs": {k: v[rows].numpy() for k, v in attrs.items()}},
+                      z.cpu().numpy(), [[k.cpu().numpy() for k in f] for f in masks]))
+    t0 = time.perf_counter()
+    rank_device = "cuda:0" if dev.type == "cuda" else "cpu"  # the CPU: a rehearsal
+    ranks = run_ranks(d1_rank, 2, steps, seed, rank_device, workdir=tmp, timeout=300)
+    d1_secs = time.perf_counter() - t0
+    ref = dp_trainer(torch.device(rank_device), seed)
+    fused_encoder_forward.launches = 0
+    ref_metrics = dp_steps(ref, steps, torch.device(rank_device))
+    ref_launches = fused_encoder_forward.launches
+    state = ref.state_dict()
+    ref_params = {f"{p}.{n}": v.cpu().numpy() for p in "EGD" for n, v in state[p].items()}
+    for name in ranks[0]["params"]:
+        check(np.array_equal(ranks[0]["params"][name], ranks[1]["params"][name]), f"D1: the ranks' {name} differ")
+    check(all(np.array_equal(r["rng"], state["rng"].cpu().numpy()) for r in ranks), "D1: a rank's generator drifted")
+    for i, want in enumerate(ref_metrics):
+        for k, v in want.items():
+            got = np.mean([r["metrics"][i][k] for r in ranks])
+            check(abs(got - v) <= 2e-4 + 2e-3 * abs(v), f"D1: step {i} {k}: 2 ranks {got}, 1 rank {v}")
+    # the CPU tests' rule: Adam's update is lr g / |g|, so a gradient that is
+    # rounding noise may take either sign; every parameter within 2 lr an
+    # update, all but one element in a thousand within rtol 2e-3 / atol 2e-4
+    d1 = dp_counts("D1 2 gloo ranks against 1 process", ranks[0]["params"], ref_params)
+    check(d1["max_abs_diff"] <= 2 * ref.tcfg.learning_rate * ref.opt_d.count
+          and d1["elements_off"] <= d1["elements"] / 1000, "D1: the ranks disagree with one process")
+    launches = [r["launches"] for r in ranks]
+    print(f"D1: fused_encoder launched {launches} times on the ranks in {D_STEPS} steps "
+          f"(1 process: {ref_launches}); ranks on {rank_device}")
+    if rank_device != "cpu":
+        check(launches == [D_STEPS, D_STEPS], "D1: a rank did not launch fused_encoder once a step")
+    line = trunk_at_training_shape("MNIST trunk at a rank's shard of 2", ref.model.encoder,
+                                   x[:32].to(dev), {k: v[:32].to(dev) for k, v in attrs.items()},
+                                   cfg.enc_plan, seed, dev, peak, card, key="kernel_at_rank_shape")
+    check(line["shape"] == [32, 28, 28, 5], f"D1: the shard's trunk input is {line['shape']}")
+    lines += [line, {"data_parallel": "D1", "ranks": 2, "backend": "gloo", "device": rank_device,
+                     "steps": D_STEPS, "seconds": d1_secs, "fused_encoder_launches": launches, **d1,
+                     "card": card}]
+    dp_row = trunk_row("fused_encoder:dp_rank", line, sum(launches), peak, card, ranks=2, train_steps=D_STEPS)
+
+    lines.append(d2_phase(dev, seed, x, attrs, card))
+
+    # ------------------------------------- D3. the CLI under torchrun
+    data = os.path.join(tmp, "data")  # C1's Morpho-MNIST-layout rows
+    here = os.path.dirname(os.path.abspath(__file__))
+    driver = os.path.join(tmp, "d3_train_mnist_image_scm.py")
+    with open(driver, "w") as f:
+        f.write(D3_DRIVER)
+    env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+    env.update(PYTHONPATH=os.pathsep.join(filter(None, (here, env.get("PYTHONPATH")))),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    cli = [driver, "--data-dir", data, "--steps", "1", "--save-images-every", "0", "--seed", str(seed),
+           "--device", dev.type]
+    runs = {"plain": [sys.executable, *cli],
+            "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                         *cli]}
+    outs, secs = {}, {}
+    for label, cmd in runs.items():
+        outs[label] = os.path.join(tmp, "d3", label)
+        t0 = time.perf_counter()
+        done = subprocess.run([*cmd, "--output-path", outs[label]], env=env, cwd=here, capture_output=True,
+                              text=True, timeout=600)
+        secs[label] = time.perf_counter() - t0
+        print(f"D3 {label}: exit {done.returncode} in {secs[label]:.1f} s; {done.stdout.strip()[-300:]}")
+        check(done.returncode == 0, f"D3 {label} failed: {done.stderr[-2000:]}")
+        secs[f"{label}_steps_per_s"] = steps_per_s(done.stdout)
+    want, _, want_meta = load_bigan(os.path.join(outs["plain"], "mnist-bigan.tar"), "cpu")
+    got, _, got_meta = load_bigan(os.path.join(outs["torchrun"], "mnist-bigan.tar"), "cpu")
+    check(got["step"] == want["step"] == CLI_TRAIN // 64 and got_meta["epoch"] == want_meta["epoch"] == 1,
+          f"D3: steps {got['step']} and {want['step']}")
+    d3 = dp_counts("D3 torchrun against a plain run", {f"{p}.{n}": v.numpy() for p in "EGD" for n, v in got[p].items()},
+                   {f"{p}.{n}": v.numpy() for p in "EGD" for n, v in want[p].items()})
+    same_tree(got, want, "D3 the checkpoint")
+    print("D3: torchrun's checkpoint is the plain run's bit for bit (E, G, D, both Adam states, the step, "
+          "the generator)")
+    lines.append({"data_parallel": "D3", "cli": "train_mnist_image_scm", "launcher": "torchrun --standalone "
+                  "--nproc-per-node 1", "steps": want["step"], "bit_for_bit": True, "seconds": secs, **d3,
+                  "card": card})
+    return lines, dp_row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3107,11 +3421,13 @@ def main(argv=None) -> int:
             p_lines = precision_phase(args, dev, card, os.path.join(tmp, "audio"))
         stamp("W1-W2, S1")
         w_launches, w_lines, marine_rows = marine_phases(args, dev, card, peak, tmp)
+        stamp("D1-D3")
+        d_lines, dp_row = parallel_phases(args, dev, card, peak, tmp)
         stamp("the end")
     for more in (m_launches, x_launches, f_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines
+    cli_lines += m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines
     for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)
@@ -3131,6 +3447,8 @@ def main(argv=None) -> int:
         check(sum(w_launches[k].values()) > 0, f"the marine CLIs did not reach the {k} kernel")
     check(all(r["launches"] > 0 for r in marine_rows), "a marine kernel row's path did not reach its kernel")
     kernels += [b1_row, *au_rows, vae_row, *marine_rows]
+    check(dp_row["launches"] > 0, "the data-parallel path did not reach the fused_encoder kernel")
+    kernels.append(dp_row)
     for line in engine_lines + score_lines + train_lines + cli_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 
 Adam (optax's defaults around ``learning_rate``) on E's parameters only;
 loss = reconstruction (MSE, or 1 - SSIM of the images mapped to [0, 1])
-between x and G(E(x, c), c), plus ``latent_weight`` * mean(z^2). One card:
-the JAX fine-tuner's data-parallel mesh is not carried.
+between x and G(E(x, c), c), plus ``latent_weight`` * mean(z^2). Data
+parallelism as in ``train.gan_trainer`` (``mesh``): the permutation (drawn or
+given) is global, each rank steps on its rows of each batch, one gradient
+all-reduce a step, the epoch's means averaged over the ranks at its end.
 
 E is differentiated here, so its trunk takes ``Encoder.forward``'s
 ``needs_grad`` route (its ``PlanSequential``: cuDNN convs on the card) and
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DeviceLike, resolve_device
 from ..models.bigan import BiGAN
 from ..ops.ssim import ssim
+from ..parallel.mesh import DataMesh, data_mesh, module_tensors
 from ..train._guards import require_full_batch, resolve_batch
 from ..train.optim import Adam, assign_grads
 
@@ -47,15 +50,18 @@ class EncoderFinetuner:
     generator of the epoch permutations."""
 
     def __init__(self, bigan: BiGAN, fcfg: FinetuneConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[DataMesh] = None):
         if fcfg.metric not in ("mse", "ssim"):
             raise ValueError(f"unknown metric {fcfg.metric!r}; 'mse' or 'ssim'")
         self.device = resolve_device(device)
+        self.mesh = mesh or data_mesh(None)
         self.bigan = bigan.to(self.device)
         self.fcfg = fcfg
         self.params = list(bigan.encoder.parameters())
+        self.mesh.replicate(module_tensors(bigan))
         # optax.adam(lr)'s defaults: betas 0.9 and 0.999, eps 1e-8
-        self.opt = Adam(self.params, lr=fcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.opt = Adam(self.params, lr=fcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                        mesh=self.mesh)
         self.step = 0
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self._fit_batch: Optional[int] = None
@@ -80,9 +86,11 @@ class EncoderFinetuner:
         return rec + self.fcfg.latent_weight * latent, rec, latent
 
     def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """One Adam update of E; returns ``{"rec", "latent"}`` as 0-d
-        tensors on the device."""
-        loss, rec, latent = self.losses(batch)
+        """One Adam update of E on ``batch`` (the global batch under a mesh:
+        each rank steps on its shard); returns ``{"rec", "latent"}`` (of this
+        rank's shard) as 0-d tensors on the device."""
+        self.mesh.check_batch(batch["image"].shape[0])
+        loss, rec, latent = self.losses(self.mesh.shard_batch(batch))
         assign_grads(self.params, loss)
         self.opt.step()
         self.step += 1
@@ -101,7 +109,7 @@ class EncoderFinetuner:
         generator when None), full batches only; returns the mean metrics."""
         n = data["image"].shape[0]
         if self._fit_batch is None:
-            self._fit_batch = resolve_batch(n, self.fcfg.batch_size)
+            self._fit_batch = resolve_batch(n, self.fcfg.batch_size, self.mesh.world)
         bsz = self._fit_batch
         require_full_batch(n, bsz)
         nb = n // bsz
@@ -115,5 +123,5 @@ class EncoderFinetuner:
                                    "attrs": {k: v[rows] for k, v in data["attrs"].items()}})
             for k in totals:
                 totals[k] += out[k]
-        rec, latent = (torch.stack([totals["rec"], totals["latent"]]) / nb).tolist()
+        rec, latent = (self.mesh.average_(torch.stack([totals["rec"], totals["latent"]])) / nb).tolist()
         return {"rec": rec, "latent": latent}

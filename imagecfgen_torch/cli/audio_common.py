@@ -98,8 +98,10 @@ def save_audio_bigan(path: str, state: Mapping, stats: SpectStats, data: AudioMN
 def load_audio_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, SpectStats, Dict]:
     """``(trainer state, statistics on device, meta)`` of either kind of
     file, the state in ``GANTrainer.state_dict()``'s form (from a JAX file:
-    no generator)."""
-    return load_spect_trainer(path, lambda tree, meta: gan_state_from_jax(tree), device)
+    no generator). A file without statistics raises
+    ``cli.common.MissingStatsError``: every caller maps spectrograms with
+    them."""
+    return load_spect_trainer(path, lambda tree, meta: gan_state_from_jax(tree), device, need_stats=True)
 
 
 def load_audio_bigan_model(path: str, device: DeviceLike = None) -> Tuple[BiGAN, SpectStats, Dict]:

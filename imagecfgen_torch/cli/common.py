@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 import struct
-import time
+import sys
 import warnings
 import zlib
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
@@ -43,7 +43,9 @@ from ..models.bigan import BiGAN, BiGANConfig
 from ..models.classifier import AutoEncoderConfig, ClassifierConfig, CNNClassifier, ConvAutoEncoder
 from ..models.vae import ConditionalVAE
 from ..ops.spectral import SpectStats
+from ..parallel.mesh import DataMesh, init_from_env
 from ..scm.mnist import MNISTAttributeSCM
+from ..utils import profiling
 
 # ------------------------------------------------------------------ data
 
@@ -127,7 +129,20 @@ def bigan_from_state(state: Mapping, cfg: BiGANConfig, device: DeviceLike = None
     return model
 
 
-# ------------------------------------------------------------ GAN training
+# ---------------------------------------------------------------- training
+
+
+def data_parallel(device: DeviceLike) -> Tuple[DataMesh, torch.device]:
+    """``(mesh, device)`` of a training CLI's process
+    (``parallel.init_from_env``): under ``torchrun``, this rank's place in the
+    launcher's group and its card (NCCL) or the CPU (gloo); a plain run is one
+    process with no group. Every rank but 0 prints nothing (its standard
+    output goes to ``os.devnull``), and the CLIs write their files on rank 0
+    alone (``mesh.is_main``); every rank reads (``--resume``)."""
+    mesh, device = init_from_env(device)
+    if not mesh.is_main:
+        sys.stdout = open(os.devnull, "w")
+    return mesh, device
 
 
 def warm_start(trainer, state: Mapping, path: str) -> None:
@@ -145,7 +160,7 @@ def fit_gan_epochs(trainer, train: Mapping, out: str, args, load: Callable[[str]
     ``args.resume`` finds one there (``load(path)`` gives its trainer state,
     statistics and meta), then train to epoch ``args.steps`` on ``train`` (from
     ``trainer.upload_dataset``), calling ``save(path, state, epoch)`` every
-    ``args.checkpoint_every`` epochs and at the last."""
+    ``args.checkpoint_every`` epochs and at the last, on the mesh's rank 0."""
     start_epoch = 0
     if args.resume and os.path.exists(out):
         state, _, meta = load(out)
@@ -156,12 +171,11 @@ def fit_gan_epochs(trainer, train: Mapping, out: str, args, load: Callable[[str]
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     nb = max(len(train["image"]) // args.batch_size, 1)
     for epoch in range(start_epoch, args.steps):
-        t0 = time.perf_counter()
-        metrics = trainer.fit_epoch(train)  # fetched at its end: the device is done
+        metrics, dt = profiling.timed(trainer.fit_epoch, train)
         print(f"epoch {epoch + 1}/{args.steps}: D(G(z))={metrics['D_score']:.4f} "
-              f"D(E(x))={metrics['EG_score']:.4f} ({nb / (time.perf_counter() - t0):.1f} steps/s, "
-              f"step {trainer.step})")
-        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+              f"D(E(x))={metrics['EG_score']:.4f} ({nb / dt:.1f} steps/s, step {trainer.step})")
+        due = (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps
+        if due and trainer.mesh.is_main:
             save(out, trainer.state_dict(), epoch + 1)
     print(f"saved {out}")
 
@@ -242,9 +256,18 @@ def stats_tensors(stats: SpectStats) -> Dict[str, torch.Tensor]:
     return {"spect_mean": stats.mean.detach().cpu(), "spect_std": stats.std.detach().cpu()}
 
 
-def stats_of(tree: Mapping, device: torch.device) -> Optional[SpectStats]:
-    """The statistics a file holds, on ``device``; None when it holds none."""
+class MissingStatsError(KeyError):
+    """A model file holds no spectrogram statistics, and its loader's callers
+    need them (the JAX loaders' ``KeyError`` at load)."""
+
+
+def stats_of(tree: Mapping, device: torch.device, required_by: Optional[str] = None) -> Optional[SpectStats]:
+    """The statistics a file holds, on ``device``; None when it holds none,
+    or :class:`MissingStatsError` naming ``required_by`` (the file's path)
+    when that is given."""
     if "spect_mean" not in tree:
+        if required_by is not None:
+            raise MissingStatsError(f"{required_by} holds no spectrogram statistics (spect_mean, spect_std)")
         return None
     return SpectStats(torch.as_tensor(tree["spect_mean"]).to(device),
                       torch.as_tensor(tree["spect_std"]).to(device))
@@ -259,16 +282,20 @@ def save_spect_trainer(path: str, state: Mapping, stats: SpectStats, kind: str,
 
 
 def load_spect_trainer(path: str, from_jax: Callable[[Mapping, Dict], Optional[Dict]],
-                       device: DeviceLike = None) -> Tuple[Optional[Dict], Optional[SpectStats], Dict]:
+                       device: DeviceLike = None, need_stats: bool = False
+                       ) -> Tuple[Optional[Dict], Optional[SpectStats], Dict]:
     """``(trainer state, statistics or None, meta)`` of either kind of file;
     ``from_jax(tree, meta)`` carries a JAX file's tree across (None: it
-    holds no state to resume)."""
+    holds no state to resume). ``need_stats``: a file without statistics
+    raises :class:`MissingStatsError`."""
     device = resolve_device(device)
+    required_by = path if need_stats else None
     if checkpoint_format(path) == "torch":
         payload, meta = load_train_state(path, device)
-        return payload["trainer"], stats_of(payload, device), meta
+        return payload["trainer"], stats_of(payload, device, required_by), meta
     tree, meta = load_checkpoint(path)
-    return from_jax(tree, meta), stats_of(tree, device), meta
+    stats = stats_of(tree, device, required_by)
+    return from_jax(tree, meta), stats, meta
 
 
 def vae_state_from_jax(tree: Mapping, meta: Dict) -> Optional[Dict]:

@@ -18,7 +18,6 @@ unchanged, E replaced), at the ``d`` of the model file's meta.
 """
 from argparse import ArgumentParser
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--zip-path", "-d", "--data", type=str, default=None)
@@ -33,13 +32,14 @@ parser.add_argument("--device", type=str, default="cuda", help="cuda (default) o
 
 def main(argv=None) -> int:
     args = parser.parse_args(argv)
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .audio_common import load_audio_bigan, load_audio_dataset, prepare_training_arrays, save_audio_bigan
     from .common import bigan_from_state
     from ..cf.finetune import EncoderFinetuner, FinetuneConfig
     from ..models.bigan import audio_mnist_bigan_config
+    from ..utils import profiling
 
     data = load_audio_dataset(args.zip_path)
     x, attrs, _ = prepare_training_arrays(data, device=device)
@@ -47,19 +47,20 @@ def main(argv=None) -> int:
     d = meta.get("d", 64)
     model = bigan_from_state(state, audio_mnist_bigan_config(d=d), device)
     ft = EncoderFinetuner(model, FinetuneConfig(learning_rate=args.lr, batch_size=args.batch_size,
-                                                metric=args.metric, remat=True), device, seed=args.seed + 1)
+                                                metric=args.metric, remat=True), device, seed=args.seed + 1,
+                           mesh=mesh)
     train = ft.upload_dataset(x, attrs)
     del x
     nb = len(train["image"]) // args.batch_size
     for epoch in range(args.steps):
-        t0 = time.time()
-        metrics = ft.fit_epoch(train)  # fetches its metrics: the epoch has ended on the device
+        metrics, dt = profiling.timed(ft.fit_epoch, train)
         print(f"epoch {epoch + 1}/{args.steps}: {args.metric}={metrics['rec']:.4f} "
-              f"latent={metrics['latent']:.4f} ({nb / (time.time() - t0):.1f} steps/s)")
+              f"latent={metrics['latent']:.4f} ({nb / dt:.1f} steps/s)")
 
     state = dict(state, E=model.encoder.state_dict())
     out = f"audio-mnist-bigan-finetuned-{args.metric}.tar"
-    save_audio_bigan(out, state, stats, data, meta={"finetuned": args.metric, "d": d})
+    if mesh.is_main:
+        save_audio_bigan(out, state, stats, data, meta={"finetuned": args.metric, "d": d})
     print(f"saved {out}")
     return 0
 

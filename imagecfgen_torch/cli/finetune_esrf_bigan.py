@@ -18,7 +18,6 @@ state.
 from argparse import ArgumentParser
 import os
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--wav-dir", "--data-dir", type=str, default=None)
@@ -40,13 +39,14 @@ parser.add_argument("--device", type=str, default="cuda", help="cuda (default) o
 
 def main(argv=None) -> int:
     args = parser.parse_args(argv)
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import bigan_from_state
     from .whale_common import collect_esrf_spectrograms, load_esrf_dataset, load_whale_bigan, save_whale_bigan
     from ..cf.finetune import EncoderFinetuner, FinetuneConfig
     from ..models.bigan import esrf_bigan_config
+    from ..utils import profiling
 
     data = load_esrf_dataset(args.wav_dir, args.label_csv, args.synthetic_recordings)
     state, stats, meta = load_whale_bigan(args.model_file, device)
@@ -58,22 +58,22 @@ def main(argv=None) -> int:
     d = meta.get("d", 64)
     model = bigan_from_state(state, esrf_bigan_config(d=d), device).eval()
     ft = EncoderFinetuner(model, FinetuneConfig(learning_rate=args.lr, batch_size=args.batch_size,
-                                                metric=args.metric, remat=args.remat), device, seed=args.seed + 1)
+                                                metric=args.metric, remat=args.remat), device, seed=args.seed + 1,
+                           mesh=mesh)
     train = ft.upload_dataset(x, attrs)
     del x
     nb = max(len(train["image"]) // args.batch_size, 1)
     for epoch in range(args.steps):
-        t0 = time.perf_counter()
-        metrics = ft.fit_epoch(train)  # fetches its metrics: the epoch has ended on the device
+        metrics, dt = profiling.timed(ft.fit_epoch, train)
         print(f"epoch {epoch + 1}/{args.steps}: {args.metric}={metrics['rec']:.4f} "
-              f"latent={metrics['latent']:.4f} ({time.perf_counter() - t0:.1f}s, "
-              f"{nb / (time.perf_counter() - t0):.1f} steps/s)", flush=True)
+              f"latent={metrics['latent']:.4f} ({dt:.1f}s, {nb / dt:.1f} steps/s)", flush=True)
 
     out_dir = args.output_path or "."
-    os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, f"esrf-bigan-finetuned-{args.metric}.tar")
-    save_whale_bigan(out, {"E": model.encoder.state_dict(), "G": state["G"]}, stats,
-                     meta={"d": d, "finetuned": args.metric}, kind="bigan-esrf")
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        save_whale_bigan(out, {"E": model.encoder.state_dict(), "G": state["G"]}, stats,
+                         meta={"d": d, "finetuned": args.metric}, kind="bigan-esrf")
     print(f"saved {out}")
     return 0
 

@@ -15,7 +15,6 @@ optimiser states unchanged.
 """
 from argparse import ArgumentParser
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--data-dir", type=str, default="")
@@ -30,30 +29,30 @@ parser.add_argument("--device", type=str, default="cuda", help="cuda (default) o
 
 def main(argv=None) -> int:
     args = parser.parse_args(argv)
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import bigan_from_state, load_bigan, load_mnist_training_data, save_bigan, scale_attrs
     from ..cf.finetune import EncoderFinetuner, FinetuneConfig
     from ..models.bigan import mnist_bigan_config
+    from ..utils import profiling
 
     x, attrs, data_scaler = load_mnist_training_data(args.data_dir, "train")
     state, scaler, _ = load_bigan(args.model_file, device)
     model = bigan_from_state(state, mnist_bigan_config(), device)
     ft = EncoderFinetuner(model, FinetuneConfig(learning_rate=args.lr, batch_size=args.batch_size,
-                                                metric=args.metric), device, seed=args.seed + 1)
+                                                metric=args.metric), device, seed=args.seed + 1, mesh=mesh)
     data = ft.upload_dataset(x, scale_attrs(data_scaler, attrs))
 
     for epoch in range(args.steps):
-        t0 = time.time()
-        metrics = ft.fit_epoch(data)  # fetches its metrics: the epoch has ended on the device
+        metrics, dt = profiling.timed(ft.fit_epoch, data)
         print(f"epoch {epoch + 1}/{args.steps}: {args.metric}={metrics['rec']:.4f} "
-              f"latent={metrics['latent']:.4f} "
-              f"({(len(x) // args.batch_size) / (time.time() - t0):.1f} steps/s)")
+              f"latent={metrics['latent']:.4f} ({(len(x) // args.batch_size) / dt:.1f} steps/s)")
 
     state = dict(state, E=model.encoder.state_dict())
     out = f"mnist-bigan-finetuned-{args.metric}.tar"
-    save_bigan(out, state, scaler, meta={"finetuned": args.metric})
+    if mesh.is_main:
+        save_bigan(out, state, scaler, meta={"finetuned": args.metric})
     print(f"saved {out}")
     return 0
 

@@ -15,7 +15,6 @@ generator state (as the JAX script's carries no noise key).
 """
 from argparse import ArgumentParser
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--nocall-dir", type=str, default=None)
@@ -34,13 +33,14 @@ parser.add_argument("--device", type=str, default="cuda", help="cuda (default) o
 
 def main(argv=None) -> int:
     args = parser.parse_args(argv)
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import bigan_from_state
     from .whale_common import collect_whale_arrays, load_whale_bigan, load_whale_dataset, save_whale_bigan
     from ..cf.finetune import EncoderFinetuner, FinetuneConfig
     from ..models.bigan import whale_bigan_config
+    from ..utils import profiling
 
     data = load_whale_dataset(args.nocall_dir, args.shotgun_dir, args.upcall_dir,
                               synthetic_clips=args.synthetic_clips)
@@ -48,19 +48,19 @@ def main(argv=None) -> int:
     state, stats, meta = load_whale_bigan(args.model_file, device)
     model = bigan_from_state(state, whale_bigan_config(d=meta.get("d", 64)), device)
     ft = EncoderFinetuner(model, FinetuneConfig(learning_rate=args.lr, batch_size=args.batch_size,
-                                                metric=args.metric), device, seed=args.seed + 1)
+                                                metric=args.metric), device, seed=args.seed + 1, mesh=mesh)
     train = ft.upload_dataset(x, {"call_type": calls})
     del x
     nb = max(len(train["image"]) // args.batch_size, 1)
     for epoch in range(args.steps):
-        t0 = time.perf_counter()
-        metrics = ft.fit_epoch(train)  # fetches its metrics: the epoch has ended on the device
+        metrics, dt = profiling.timed(ft.fit_epoch, train)
         print(f"epoch {epoch + 1}/{args.steps}: {args.metric}={metrics['rec']:.4f} "
-              f"latent={metrics['latent']:.4f} ({nb / (time.perf_counter() - t0):.1f} steps/s)")
+              f"latent={metrics['latent']:.4f} ({nb / dt:.1f} steps/s)")
 
     out = f"whale-bigan-finetuned-{args.metric}.tar"
-    save_whale_bigan(out, dict(state, E=model.encoder.state_dict(), rng=None), stats,
-                     meta={"finetuned": args.metric, "d": meta.get("d", 64)})
+    if mesh.is_main:
+        save_whale_bigan(out, dict(state, E=model.encoder.state_dict(), rng=None), stats,
+                         meta={"finetuned": args.metric, "d": meta.get("d", 64)})
     print(f"saved {out}")
     return 0
 

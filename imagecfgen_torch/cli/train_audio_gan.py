@@ -18,7 +18,6 @@ pair or an encoder trunk.
 from argparse import ArgumentParser
 import os
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--zip-path", type=str, default=None)
@@ -39,12 +38,13 @@ parser.add_argument("--device", type=str, default="cuda", help="cuda (default) o
 
 def main(argv=None) -> int:
     args = parser.parse_args(argv)
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .audio_common import load_audio_dataset, load_audio_gan, prepare_training_arrays, save_audio_gan
     from ..models.gan import UncondGANConfig
     from ..train.uncond_gan_trainer import UncondGANTrainConfig, UncondGANTrainer
+    from ..utils import profiling
 
     data = load_audio_dataset(args.zip_path)
     x, _, stats = prepare_training_arrays(data, device=device)
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
         UncondGANTrainConfig(learning_rate=args.l_rate, batch_size=args.batch_size,
                              d_updates_per_g_update=args.d_updates_per_g_update, loss_mode=args.loss_mode,
                              discriminator_weight_decay=args.discriminator_weight_decay),
-        device, seed=args.seed,
+        device, seed=args.seed, mesh=mesh,
     )
     out_dir = args.output_path or "."
     out = os.path.join(out_dir, f"audio-gan-{args.loss_mode}.tar")
@@ -69,11 +69,11 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     nb = max(len(train["image"]) // args.batch_size, 1)
     for epoch in range(start_epoch, args.steps):
-        t0 = time.perf_counter()
-        metrics = trainer.fit_epoch(train)  # fetched at its end: the device is done
+        metrics, dt = profiling.timed(trainer.fit_epoch, train)
         print(f"epoch {epoch + 1}/{args.steps}: loss_G={metrics['loss_G']:.4f} loss_D={metrics['loss_D']:.4f} "
-              f"({nb / (time.perf_counter() - t0):.1f} steps/s, step {trainer.step})")
-        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+              f"({nb / dt:.1f} steps/s, step {trainer.step})")
+        due = (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps
+        if due and mesh.is_main:
             save_audio_gan(out, trainer.state_dict(), stats, args.loss_mode,
                            meta={"epoch": epoch + 1, "d": args.generator_size})
     print(f"saved {out}")

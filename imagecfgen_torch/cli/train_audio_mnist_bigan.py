@@ -53,9 +53,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .audio_common import load_audio_bigan, load_audio_dataset, prepare_training_arrays, save_audio_bigan
     from .common import fit_gan_epochs
     from .train_mnist_image_scm import throughput_kw
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
         bigan.BiGAN(cfg, device, torch.Generator().manual_seed(args.seed)),
         GANTrainConfig(learning_rate=args.l_rate, betas=(0.5, 0.9), batch_size=args.batch_size,
                        d_updates_per_g_update=1, **throughput_kw(args)),
-        device, seed=args.seed,
+        device, seed=args.seed, mesh=mesh,
     )
     train = trainer.upload_dataset(x, attrs)
     del x

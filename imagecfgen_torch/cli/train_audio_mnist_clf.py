@@ -35,9 +35,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .audio_common import load_audio_dataset, prepare_training_arrays, save_audio_classifier, validation_images
     from ..models.classifier import CNNClassifier, audio_mnist_classifier_config
     from ..train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
@@ -55,7 +55,7 @@ def main(argv=None) -> int:
                         torch.Generator().manual_seed(args.seed))
     trainer = SupervisedTrainer(clf, SupervisedTrainConfig(learning_rate=args.l_rate,
                                                            batch_size=args.batch_size),
-                                device, seed=args.seed + 1)
+                                device, seed=args.seed + 1, mesh=mesh)
     xv, v_attrs, vidx = validation_images(data, stats, device)
     yv = data.raw["subject"][vidx] - 1 if args.attribute == "subject" else v_attrs[args.attribute].argmax(axis=1)
 
@@ -70,9 +70,10 @@ def main(argv=None) -> int:
 
     out_dir = args.output_path or "."
     out = os.path.join(out_dir, f"audio-mnist-{args.attribute}-clf.tar")
-    os.makedirs(out_dir, exist_ok=True)
-    save_audio_classifier(out, trainer.state_dict(), stats,
-                          {"attribute": args.attribute, "n_classes": n_classes, "width": args.width})
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        save_audio_classifier(out, trainer.state_dict(), stats,
+                              {"attribute": args.attribute, "n_classes": n_classes, "width": args.width})
     print(f"saved {out}")
     return 0
 

@@ -18,7 +18,6 @@ from ``--seed``.
 from argparse import ArgumentParser
 import os
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--zip-path", type=str, default=None)
@@ -40,12 +39,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .audio_common import load_audio_dataset, load_audio_vae_state, prepare_training_arrays, save_audio_vae
     from ..models.vae import ConditionalVAE, audio_mnist_vae_config
     from ..train.vae_trainer import VAETrainConfig, VAETrainer
+    from ..utils import profiling
 
     data = load_audio_dataset(args.zip_path)
     x, attrs, stats = prepare_training_arrays(data, device=device)
@@ -54,7 +54,7 @@ def main(argv=None) -> int:
         model,
         VAETrainConfig(learning_rate=args.l_rate, batch_size=args.batch_size,
                        num_samples_per_step=args.num_samples_per_step, kl_weight=args.kl_weight),
-        device, seed=args.seed + 1,
+        device, seed=args.seed + 1, mesh=mesh,
     )
     out_dir = args.output_path or "."
     out = os.path.join(out_dir, "audio-mnist-vae.tar")
@@ -73,11 +73,10 @@ def main(argv=None) -> int:
     del x
     nb = len(train["image"]) // args.batch_size
     for epoch in range(start_epoch, args.steps):
-        t0 = time.perf_counter()
-        metrics = trainer.fit_epoch(train)  # fetched at its end: the device is done
-        print(f"epoch {epoch + 1}/{args.steps}: -elbo={metrics['neg_elbo']:.2f} "
-              f"({nb / (time.perf_counter() - t0):.1f} steps/s)")
-        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+        metrics, dt = profiling.timed(trainer.fit_epoch, train)
+        print(f"epoch {epoch + 1}/{args.steps}: -elbo={metrics['neg_elbo']:.2f} ({nb / dt:.1f} steps/s)")
+        due = (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps
+        if due and mesh.is_main:
             save_audio_vae(out, trainer.state_dict(), stats, meta={"epoch": epoch + 1, "d": args.d})
     print(f"saved {out}")
     return 0

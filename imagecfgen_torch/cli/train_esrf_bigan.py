@@ -53,9 +53,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import fit_gan_epochs, warm_start
     from .whale_common import collect_esrf_spectrograms, load_esrf_dataset, load_whale_bigan, save_whale_bigan
     from ..models import bigan
@@ -76,7 +76,7 @@ def main(argv=None) -> int:
         bigan.BiGAN(cfg, device, torch.Generator().manual_seed(args.seed)),
         GANTrainConfig(learning_rate=args.l_rate, betas=(0.5, 0.9), batch_size=args.batch_size,
                        remat=args.remat),
-        device, seed=args.seed,
+        device, seed=args.seed, mesh=mesh,
     )
     if args.start_model:
         state, _, _ = load_whale_bigan(args.start_model, device)

@@ -26,9 +26,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import has_test_split, load_mnist_training_data, save_classifier
     from ..models.classifier import CNNClassifier, mnist_classifier_config
     from ..train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
@@ -41,7 +41,7 @@ def main(argv=None) -> int:
 
     clf = CNNClassifier(mnist_classifier_config(), device, torch.Generator().manual_seed(args.seed))
     trainer = SupervisedTrainer(clf, SupervisedTrainConfig(batch_size=args.batch_size), device,
-                                seed=args.seed + 1)
+                                seed=args.seed + 1, mesh=mesh)
     data = trainer.upload_dataset(x, attrs["digit"])
     for epoch in range(args.epochs):
         metrics = trainer.fit_epoch(data)
@@ -52,8 +52,9 @@ def main(argv=None) -> int:
 
     out_dir = args.output_path or "."
     out = os.path.join(out_dir, args.output_name)
-    os.makedirs(out_dir, exist_ok=True)
-    save_classifier(out, trainer.state_dict(), meta={"kind": "mnist-clf"})
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        save_classifier(out, trainer.state_dict(), meta={"kind": "mnist-clf"})
     print(f"saved {out}")
     return 0
 

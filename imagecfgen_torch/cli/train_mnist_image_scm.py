@@ -4,7 +4,10 @@
     python -m imagecfgen_torch.cli.train_mnist_image_scm --data-dir D \
         [--output-path O] [--steps 200] [--throughput] [--resume] [--device cuda|cpu]
 
-``--steps`` counts epochs. Writes ``mnist-bigan.tar`` every
+``--steps`` counts epochs. Under ``torchrun`` (``torchrun --nproc-per-node N
+-m imagecfgen_torch.cli.train_mnist_image_scm ...``) each of N ranks takes
+its share of every batch of ``--batch-size`` rows, on its own card, and rank
+0 prints and writes. Writes ``mnist-bigan.tar`` every
 ``--checkpoint-every`` epochs and at the end: the trainer's whole state (so
 ``--resume`` continues it bit for bit on the same device), the attribute
 scaler and the epoch. ``--resume`` also takes over a ``mnist-bigan.tar`` that
@@ -15,7 +18,6 @@ its noise anew from ``--seed``. Every ``--save-images-every`` epochs an
 from argparse import ArgumentParser
 import os
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--data-dir", type=str, default="")
@@ -48,12 +50,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
 
-    from ..device import resolve_device
-
-    device = resolve_device(args.device)
-    from .common import load_bigan, load_mnist_training_data, save_bigan, save_grid_png, scale_attrs
+    from .common import data_parallel, load_bigan, load_mnist_training_data, save_bigan, save_grid_png, scale_attrs
     from ..models.bigan import BiGAN, mnist_bigan_config
     from ..train.gan_trainer import GANTrainConfig, GANTrainer
+    from ..utils import profiling
+
+    mesh, device = data_parallel(args.device)
 
     x, attrs, scaler = load_mnist_training_data(args.data_dir, "train")
     cfg = mnist_bigan_config()
@@ -61,7 +63,7 @@ def main(argv=None) -> int:
         BiGAN(cfg, device, torch.Generator().manual_seed(args.seed)),
         GANTrainConfig(learning_rate=args.l_rate, batch_size=args.batch_size,
                        d_updates_per_g_update=args.d_updates_per_g_update, **throughput_kw(args)),
-        device, seed=args.seed,
+        device, seed=args.seed, mesh=mesh,
     )
     out_dir = args.output_path or "."
     ckpt_path = os.path.join(out_dir, "mnist-bigan.tar")
@@ -79,9 +81,7 @@ def main(argv=None) -> int:
     model = trainer.model
     os.makedirs(out_dir, exist_ok=True)
     for epoch in range(start_epoch, args.steps):
-        t0 = time.perf_counter()
-        metrics = trainer.fit_epoch(data)  # fetched at its end: the device is done
-        dt = time.perf_counter() - t0
+        metrics, dt = profiling.timed(trainer.fit_epoch, data)
         n_steps = len(x) // args.batch_size
         print(
             f"epoch {epoch + 1}/{args.steps}: "
@@ -90,7 +90,7 @@ def main(argv=None) -> int:
             f"({n_steps / dt:.1f} steps/s, step {trainer.step})"
         )
 
-        if args.save_images_every and (epoch + 1) % args.save_images_every == 0:
+        if mesh.is_main and args.save_images_every and (epoch + 1) % args.save_images_every == 0:
             z = torch.randn((n_show, 1, 1, cfg.latent_dim),
                             generator=torch.Generator().manual_seed(args.seed + 10_000 + epoch))
             with torch.no_grad():
@@ -103,7 +103,8 @@ def main(argv=None) -> int:
                 title=f"Epoch {epoch + 1}",
             )
 
-        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+        due = (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps
+        if due and mesh.is_main:
             save_bigan(ckpt_path, trainer.state_dict(), scaler, meta={"epoch": epoch + 1})
 
     print(f"saved {ckpt_path}")

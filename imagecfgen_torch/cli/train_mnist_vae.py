@@ -12,7 +12,6 @@ step, kl_weight 10).
 from argparse import ArgumentParser
 import os
 import sys
-import time
 
 parser = ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--data-dir", type=str, default="")
@@ -31,12 +30,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import load_mnist_training_data, save_vae, scale_attrs
     from ..models.vae import ConditionalVAE, mnist_vae_config
     from ..train.vae_trainer import VAETrainConfig, VAETrainer
+    from ..utils import profiling
 
     x, attrs, scaler = load_mnist_training_data(args.data_dir, "train")
     model = ConditionalVAE(mnist_vae_config(), device, torch.Generator().manual_seed(args.seed))
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
         model,
         VAETrainConfig(learning_rate=args.l_rate, batch_size=args.batch_size,
                        num_samples_per_step=args.num_samples_per_step, kl_weight=args.kl_weight),
-        device, seed=args.seed + 1,
+        device, seed=args.seed + 1, mesh=mesh,
     )
     data = trainer.upload_dataset(x, scale_attrs(scaler, attrs))
 
@@ -53,11 +53,10 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     nb = len(x) // args.batch_size
     for epoch in range(args.steps):
-        t0 = time.perf_counter()
-        metrics = trainer.fit_epoch(data)  # fetched at its end: the device is done
-        print(f"epoch {epoch + 1}/{args.steps}: -elbo={metrics['neg_elbo']:.2f} "
-              f"({nb / (time.perf_counter() - t0):.1f} steps/s)")
-        if (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps:
+        metrics, dt = profiling.timed(trainer.fit_epoch, data)
+        print(f"epoch {epoch + 1}/{args.steps}: -elbo={metrics['neg_elbo']:.2f} ({nb / dt:.1f} steps/s)")
+        due = (epoch + 1) % args.checkpoint_every == 0 or (epoch + 1) == args.steps
+        if due and mesh.is_main:
             save_vae(out, trainer.state_dict(), scaler, meta={"epoch": epoch + 1})
     print(f"saved {out}")
     return 0

@@ -27,9 +27,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import load_mnist_training_data, save_classifier
     from ..models.classifier import AutoEncoderConfig, ConvAutoEncoder
     from ..train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     trainer = SupervisedTrainer(
         ae, SupervisedTrainConfig(batch_size=args.batch_size, loss="mse",
                                   learning_rate=args.learning_rate),
-        device, seed=args.seed + 1,
+        device, seed=args.seed + 1, mesh=mesh,
     )
     data = trainer.upload_dataset(x, x)
     for epoch in range(args.epochs):
@@ -54,8 +54,9 @@ def main(argv=None) -> int:
     name = "all" if args.cls < 0 else str(args.cls)
     out_dir = args.output_path or "."
     out = os.path.join(out_dir, f"ae-{name}.tar")
-    os.makedirs(out_dir, exist_ok=True)
-    save_classifier(out, trainer.state_dict(), meta={"kind": "mnist-ae", "cls": args.cls})
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        save_classifier(out, trainer.state_dict(), meta={"kind": "mnist-ae", "cls": args.cls})
     print(f"saved {out}")
     return 0
 

@@ -27,9 +27,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import load_mnist_training_data, save_classifier
     from ..models.classifier import CNNClassifier, mnist_oracle_config
     from ..train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
@@ -43,14 +43,15 @@ def main(argv=None) -> int:
         y = (digits == d).astype(np.float32).reshape(-1, 1)
         clf = CNNClassifier(mnist_oracle_config(), device, torch.Generator().manual_seed(args.seed + d))
         trainer = SupervisedTrainer(clf, SupervisedTrainConfig(batch_size=args.batch_size, loss="bce"),
-                                    device, seed=args.seed + 100 + d)
+                                    device, seed=args.seed + 100 + d, mesh=mesh)
         data = trainer.upload_dataset(x, y)
         for _ in range(args.epochs):
             trainer.fit_epoch(data)
         pred = trainer.predict(x[:2048])[:, 0] > 0
         acc = (pred.cpu().numpy() == (y[:2048, 0] > 0.5)).mean()
         out = os.path.join(out_dir, f"oracle-{d}.tar")
-        save_classifier(out, trainer.state_dict(), meta={"kind": "mnist-oracle", "digit": d})
+        if mesh.is_main:
+            save_classifier(out, trainer.state_dict(), meta={"kind": "mnist-oracle", "digit": d})
         print(f"oracle {d}: train acc {acc:.4f} -> {out}")
     return 0
 

@@ -56,9 +56,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .common import fit_gan_epochs, warm_start
     from .train_mnist_image_scm import throughput_kw
     from .whale_common import collect_whale_arrays, load_whale_bigan, load_whale_dataset, save_whale_bigan
@@ -77,7 +77,7 @@ def main(argv=None) -> int:
         bigan.BiGAN(cfg, device, torch.Generator().manual_seed(args.seed)),
         GANTrainConfig(learning_rate=args.l_rate, betas=(0.5, 0.9), batch_size=args.batch_size,
                        remat=args.remat, **throughput_kw(args)),
-        device, seed=args.seed,
+        device, seed=args.seed, mesh=mesh,
     )
     if args.start_model:
         state, stats, _ = load_whale_bigan(args.start_model, device)

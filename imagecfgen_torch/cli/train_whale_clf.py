@@ -34,9 +34,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     import torch
 
-    from ..device import resolve_device
+    from .common import data_parallel
 
-    device = resolve_device(args.device)
+    mesh, device = data_parallel(args.device)
     from .whale_common import collect_whale_arrays, load_whale_dataset, save_whale_classifier
     from ..models.classifier import CNNClassifier, narw_classifier_config
     from ..train.clf_trainer import SupervisedTrainConfig, SupervisedTrainer
@@ -50,7 +50,7 @@ def main(argv=None) -> int:
     clf = CNNClassifier(narw_classifier_config(3, width=args.width), device,
                         torch.Generator().manual_seed(args.seed))
     trainer = SupervisedTrainer(clf, SupervisedTrainConfig(learning_rate=args.l_rate, batch_size=args.batch_size),
-                                device, seed=args.seed + 1)
+                                device, seed=args.seed + 1, mesh=mesh)
     train = trainer.upload_dataset(x, y)
     del x
     for epoch in range(args.epochs):
@@ -62,8 +62,9 @@ def main(argv=None) -> int:
 
     out_dir = args.output_path or "."
     out = os.path.join(out_dir, "whale-clf.tar")
-    os.makedirs(out_dir, exist_ok=True)
-    save_whale_classifier(out, trainer.state_dict(), stats, args.width)
+    if mesh.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        save_whale_classifier(out, trainer.state_dict(), stats, args.width)
     print(f"saved {out}")
     return 0
 

@@ -126,8 +126,10 @@ def load_whale_bigan(path: str, device: DeviceLike = None) -> Tuple[Dict, SpectS
     """``(trainer state, statistics on device, meta)`` of either kind of
     whale or ESRF BiGAN file, the state in ``GANTrainer.state_dict()``'s
     form (from a JAX file: no generator). A file that holds E and G alone
-    (the ESRF fine-tune's) gives a state of those two."""
-    return load_spect_trainer(path, _bigan_state_from_jax, device)
+    (the ESRF fine-tune's) gives a state of those two. A file without
+    statistics raises ``cli.common.MissingStatsError``, as the JAX loader
+    does."""
+    return load_spect_trainer(path, _bigan_state_from_jax, device, need_stats=True)
 
 
 # ------------------------------------------------------------ classifier

@@ -75,13 +75,20 @@ def _kernel_init(shape, std, fan_in: int, rng: Optional[torch.Generator]) -> tor
 class BatchNorm(nn.Module):
     """Batch norm over all but the last axis with flax's semantics: running
     statistics in eval; in train mode the batch mean and the biased batch
-    variance, which also move the running buffers by ``momentum``."""
+    variance, which also move the running buffers by ``momentum``.
+
+    ``mesh`` (a ``parallel.DataMesh``, set by :func:`sync_batch_norms`): the
+    batch is sharded over its ranks, and the statistics are the global
+    batch's, as GSPMD computes them: each rank's mean and ``E[x^2]``
+    averaged over the ranks (equal shards) with a differentiable all-reduce,
+    so every rank normalises alike and moves its running buffers alike."""
 
     momentum = 0.9  # flax's convention: the share of the old running value
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.mesh = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -94,13 +101,23 @@ class BatchNorm(nn.Module):
         mean, var = self.mean, self.var
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            mean, sq = x.mean(axes), (x * x).mean(axes)
+            if self.mesh is not None and self.mesh.group is not None:
+                mean, sq = self.mesh.mean_across(torch.stack([mean, sq])).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             if update_stats:
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
                     self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def sync_batch_norms(module: nn.Module, mesh) -> None:
+    """Every :class:`BatchNorm` of ``module`` computes its train-mode
+    statistics over ``mesh``'s global batch."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:

@@ -111,6 +111,12 @@ class ConditionalVAE(nn.Module):
         dev = rng.device if rng is not None else like.device
         return torch.randn(shape, generator=rng, device=dev).to(like.device)
 
+    def draw_eps(self, batch: int, num_samples: int, like: torch.Tensor,
+                 rng: Optional[torch.Generator]) -> torch.Tensor:
+        """The ELBO's ``(batch, num_samples, 1, 1, latent)`` standard normals
+        from ``rng``, on ``like``'s device."""
+        return self._noise((batch, num_samples, *self.encoder.mean_head.out_shape), like, rng)
+
     def encode_sample(self, x, attrs, rng: Optional[torch.Generator] = None,
                       eps: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         """A reparameterised draw from q(z|x,c). The reference scales by the
@@ -134,7 +140,7 @@ class ConditionalVAE(nn.Module):
         obs_std = math.exp(self.obs_log_var / 2.0)
 
         if eps is None:
-            eps = self._noise((b, s, *mean.shape[1:]), mean, rng)
+            eps = self.draw_eps(b, s, mean, rng)
         z = (mean[:, None] + std[:, None] * eps).reshape(b * s, *mean.shape[1:])
         attrs_rep = {k: torch.repeat_interleave(v, s, dim=0) for k, v in attrs.items()}
         dec = self.decoder(z, attrs_rep, train=train).reshape(b, s, -1)

@@ -11,7 +11,10 @@ and NARW heads) trains through ``ops.fused_dense``: the hand-written kernel
 forward on the card, plain matmuls backward.
 
 As in the GAN trainer, an epoch keeps the data on the device, shuffles there
-and fetches its mean loss once.
+and fetches its mean loss once; and data parallelism is the GAN trainer's
+(``mesh``): each rank steps on its rows of the global batch (``fused_dense``
+at the local rows), one gradient all-reduce a step, the epoch's mean loss
+averaged over the ranks at its end.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import DataMesh, data_mesh, module_tensors
 from ._guards import require_full_batch, resolve_batch
 from .optim import Adam, adam_state, assign_grads, load_adam_state
 
@@ -42,15 +46,18 @@ class SupervisedTrainer:
     permutations."""
 
     def __init__(self, module: torch.nn.Module, tcfg: SupervisedTrainConfig,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0, mesh: Optional[DataMesh] = None):
         if tcfg.loss not in LOSSES:
             raise ValueError(f"unknown loss {tcfg.loss!r}; one of {LOSSES}")
         self.device = resolve_device(device)
+        self.mesh = mesh or data_mesh(None)
         self.module = module.to(self.device)
         self.tcfg = tcfg
         self.params = list(module.parameters())
+        self.mesh.replicate(module_tensors(module))
         # optax.adam(lr)'s defaults: betas 0.9 and 0.999, eps 1e-8
-        self.opt = Adam(self.params, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.opt = Adam(self.params, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                        mesh=self.mesh)
         self.step = 0
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self._fit_batch: Optional[int] = None
@@ -63,8 +70,11 @@ class SupervisedTrainer:
         return torch.mean((logits - y) ** 2)
 
     def train_step(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """One Adam update on ``{"x", "y"}`` (on the trainer's device);
-        returns the loss as a 0-d tensor on the device."""
+        """One Adam update on ``{"x", "y"}`` (on the trainer's device; the
+        global batch under a mesh); returns the loss (of this rank's shard)
+        as a 0-d tensor on the device."""
+        self.mesh.check_batch(batch["x"].shape[0])
+        batch = self.mesh.shard_batch(batch)
         logits = self.module(batch["x"], train=True)
         loss = self.compute_loss(logits, batch["y"])
         assign_grads(self.params, loss)
@@ -84,7 +94,7 @@ class SupervisedTrainer:
         total = torch.zeros((), device=self.device)
         for i in range(xs.shape[0]):
             total += self.train_step({"x": xs[i], "y": ys[i]})["loss"]
-        return {"loss": (total / xs.shape[0]).item()}
+        return {"loss": (self.mesh.average_(total) / xs.shape[0]).item()}
 
     def upload_dataset(self, x, y) -> Dict[str, torch.Tensor]:
         """(x, y) on the trainer's device, once."""
@@ -95,7 +105,7 @@ class SupervisedTrainer:
         :meth:`upload_dataset`, shuffled on the device."""
         n = data["x"].shape[0]
         if self._fit_batch is None:
-            self._fit_batch = resolve_batch(n, self.tcfg.batch_size)
+            self._fit_batch = resolve_batch(n, self.tcfg.batch_size, self.mesh.world)
         bsz = self._fit_batch
         require_full_batch(n, bsz)
         nb = n // bsz

@@ -43,6 +43,22 @@ Every draw of a step (``z`` and the dropout masks of its D forwards) is
 injectable, so that a test can hand this trainer and the JAX one the same
 numbers.
 
+Data parallelism (``mesh``, a ``parallel.DataMesh`` over ``W`` ranks; the
+JAX trainer's ``mesh``): every rank is handed the same global batch, and
+draws ``z``, the dropout masks and the epoch permutation for the global
+batch from its own generator, seeded alike, so the generators stay equal
+across ranks and a 1-rank and a ``W``-rank run see the same noise. Each rank
+then takes its rows of each (``mesh.shard``; a 2B forward's masks are two
+batches stacked) and runs the step on them: the recompute sends its local
+``(B/W, ...)`` shard through ``fused_encoder``. The collectives of a step are
+one gradient all-reduce for E+G and one for each D update (inside
+``train.optim.Adam``), and D's batch-norm statistics (a differentiable
+all-reduce of each batch norm's mean and ``E[x^2]``, forward and backward).
+The step's metrics are the rank's own shard's; an epoch's totals are
+averaged over the ranks once, at its end. Parameters and buffers are
+broadcast from rank 0 once, at construction. Without a mesh (or with
+``data_mesh(None)``) nothing is sharded and no collective is issued.
+
 The model's ``compute_dtype`` (float32 or bfloat16) sets the type of the E,
 G and D forwards, with the JAX package's semantics: the parameters and both
 Adam states stay float32 (``mu`` in ``mu_dtype``), the forwards compute in
@@ -64,6 +80,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..models.bigan import BiGAN
+from ..models.layers import sync_batch_norms
+from ..parallel.mesh import DataMesh, data_mesh, module_tensors
 from ._guards import require_full_batch, resolve_batch
 from .optim import Adam, adam_state, assign_grads, load_adam_state
 
@@ -111,8 +129,9 @@ class GANTrainer:
     own the parameters and D's batch-norm buffers."""
 
     def __init__(self, model: BiGAN, tcfg: GANTrainConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[DataMesh] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh or data_mesh(None)
         if model.cfg.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"training computes in float32 or bfloat16, not {model.cfg.compute_dtype}")
         self.model = model.to(self.device)
@@ -120,7 +139,9 @@ class GANTrainer:
         self.params_eg = [*model.encoder.parameters(), *model.generator.parameters()]
         self.params_d = list(model.discriminator.parameters())
         adam = dict(lr=tcfg.learning_rate, betas=tuple(tcfg.betas), eps=1e-8,
-                    mu_dtype=tcfg.mu_dtype or torch.float32)
+                    mu_dtype=tcfg.mu_dtype or torch.float32, mesh=self.mesh)
+        sync_batch_norms(model, self.mesh)
+        self.mesh.replicate(module_tensors(model))
         self.opt_eg = Adam(self.params_eg, **adam)
         self.opt_d = Adam(self.params_d, **adam)
         self.step = 0
@@ -233,13 +254,19 @@ class GANTrainer:
         "attrs": {...}}`` on the trainer's device). ``z`` ``(B, 1, 1,
         latent)`` and ``masks`` (one list of dropout keep masks per D forward,
         at the batches of :meth:`d_batches`) are drawn from the trainer's
-        generator when None. Returns the four metrics as 0-d tensors on the
-        device; nothing is fetched."""
-        x, attrs = batch["image"], batch["attrs"]
+        generator when None. Under a mesh all three are global and each rank
+        steps on its shard. Returns the four metrics (of this rank's shard)
+        as 0-d tensors on the device; nothing is fetched."""
+        b = batch["image"].shape[0]
+        self.mesh.check_batch(b)
         if z is None or masks is None:
-            drawn_z, drawn_masks = self.draw_noise(x.shape[0])
+            drawn_z, drawn_masks = self.draw_noise(b)
             z = drawn_z if z is None else z
             masks = drawn_masks if masks is None else masks
+        shard = self.mesh.shard
+        batch, z = self.mesh.shard_batch(batch), shard(z)
+        masks = [[shard(m, n // b) for m in fwd] for n, fwd in zip(self.d_batches(b), masks)]
+        x, attrs = batch["image"], batch["attrs"]
 
         n_eg = 1 if self.tcfg.fused_eg_d else 2
         eg_masks, masks = masks[:n_eg], masks[n_eg:]
@@ -281,7 +308,8 @@ class GANTrainer:
     def run_epoch(self, batches: Mapping) -> Dict[str, float]:
         """``batches``: ``{"image", "attrs"}`` with leaves shaped
         ``(n_batches, B, ...)`` (numpy or tensors; moved to the device
-        once). Returns the epoch's mean metrics, fetched once at its end."""
+        once; global batches under a mesh). Returns the epoch's mean metrics
+        (averaged over the ranks), fetched once at its end."""
         batches = self._to_device(batches)
         nb = batches["image"].shape[0]
         if nb == 0:
@@ -291,7 +319,7 @@ class GANTrainer:
             m = self.train_step({"image": batches["image"][i],
                                  "attrs": {k: v[i] for k, v in batches["attrs"].items()}})
             total += torch.stack([m[k] for k in METRICS])
-        return dict(zip(METRICS, (total / nb).tolist()))
+        return dict(zip(METRICS, (self.mesh.average_(total) / nb).tolist()))
 
     def upload_dataset(self, x, attrs: Mapping) -> Dict:
         """The full (image, attrs) dataset on the trainer's device. Images
@@ -300,11 +328,11 @@ class GANTrainer:
 
     def fit_epoch(self, data: Mapping) -> Dict[str, float]:
         """One epoch over a device-resident dataset from
-        :meth:`upload_dataset`: a permutation drawn on the device, the ragged
-        tail dropped."""
+        :meth:`upload_dataset` (the whole set on every rank): a permutation
+        drawn on the device, the ragged tail dropped."""
         n = data["image"].shape[0]
         if self._fit_batch is None:
-            self._fit_batch = resolve_batch(n, self.tcfg.batch_size)
+            self._fit_batch = resolve_batch(n, self.tcfg.batch_size, self.mesh.world)
         bsz = self._fit_batch
         require_full_batch(n, bsz)
         nb = n // bsz

@@ -14,6 +14,11 @@ is bound by its launches. ``mu_dtype=torch.bfloat16``
 (``optax.adam(mu_dtype=...)``) stores the first moment rounded to bfloat16;
 the update uses this step's float32 value.
 
+Under data parallelism (``mesh``, a ``parallel.DataMesh``) each rank's
+gradient is of its shard's mean loss; the flat gradient vector is averaged
+over the ranks (one all-reduce an update) before the moments see it, as
+GSPMD's gradient all-reduce does in the JAX package.
+
 A checkpoint (and ``core.convert``) holds the state by parameter name:
 ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``, optax's
 ``ScaleByAdamState`` with the port's parameter names and layouts, ``mu`` in
@@ -42,12 +47,15 @@ def assign_grads(params: List[torch.nn.Parameter], loss: torch.Tensor) -> None:
 class Adam:
     """``optax.adam(lr, b1, b2, eps, mu_dtype=...)`` on ``params`` (updated
     in place from their ``.grad``); with ``weight_decay``,
-    ``optax.adamw(lr, b1, b2, eps, weight_decay=...)`` (no mask)."""
+    ``optax.adamw(lr, b1, b2, eps, weight_decay=...)`` (no mask); with
+    ``mesh``, on the gradients averaged over its ranks."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], lr: float,
                  betas: Tuple[float, float], eps: float = 1e-8,
-                 mu_dtype: torch.dtype = torch.float32, weight_decay: float = 0.0):
+                 mu_dtype: torch.dtype = torch.float32, weight_decay: float = 0.0,
+                 mesh=None):
         self.params = list(params)
+        self.mesh = mesh
         self.lr, (self.b1, self.b2), self.eps = lr, tuple(betas), eps
         self.weight_decay = weight_decay
         self.count = 0
@@ -62,6 +70,8 @@ class Adam:
     @torch.no_grad()
     def step(self) -> None:
         g = torch.cat([p.grad.reshape(-1) for p in self.params])
+        if self.mesh is not None:
+            self.mesh.average_(g)
         self.count += 1
         b1, b2 = self.b1, self.b2
         mu = torch.mul(g, 1 - b1).add_(self.mu.float(), alpha=b1)

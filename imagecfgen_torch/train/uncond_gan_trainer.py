@@ -14,11 +14,14 @@ Per step, with the JAX trainer's semantics:
   (decoupled decay on every parameter) when ``discriminator_weight_decay``
   is set: both the port's one flat ``train.optim.Adam``.
 
-One card: the JAX trainer's data-parallel mesh is not carried. Every draw of
-a step (``z``, ``z'`` and the penalty's interpolation weights) is
-injectable, so that a test can hand this trainer and the JAX one the same
+Every draw of a step (``z``, ``z'`` and the penalty's interpolation weights)
+is injectable, so that a test can hand this trainer and the JAX one the same
 numbers; otherwise they come from the trainer's own generator, in that
-order (``z`` only on steps that update G). An epoch keeps the data on the
+order (``z`` only on steps that update G). Data parallelism as in
+``train.gan_trainer`` (``mesh``): the three draws are made for the global
+batch and sliced per rank, one gradient all-reduce for each of the G and D
+updates; D has no batch norm, so the penalty's double backward meets no
+collective. An epoch keeps the data on the
 device, draws its permutation there, drops the ragged tail and fetches its
 mean metrics once.
 """
@@ -31,6 +34,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.gan import UncondDiscriminator, UncondGANConfig, UncondGenerator, wgan_disc_loss
+from ..parallel.mesh import DataMesh, data_mesh, module_tensors
 from ._guards import require_full_batch, resolve_batch
 from .gan_trainer import bce_logits
 from .optim import Adam, adam_state, assign_grads, load_adam_state
@@ -54,15 +58,17 @@ class UncondGANTrainer:
     the noise."""
 
     def __init__(self, cfg: UncondGANConfig, tcfg: UncondGANTrainConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[DataMesh] = None):
         if tcfg.loss_mode not in ("gan", "wgan"):
             raise ValueError(f"unknown loss_mode {tcfg.loss_mode!r}; 'gan' or 'wgan'")
         self.device = resolve_device(device)
+        self.mesh = mesh or data_mesh(None)
         self.cfg, self.tcfg = cfg, tcfg
         init = torch.Generator().manual_seed(seed)
         self.G = UncondGenerator(cfg, self.device, init)
         self.D = UncondDiscriminator(cfg, self.device, init)
-        adam = dict(lr=tcfg.learning_rate, betas=tuple(tcfg.betas), eps=1e-8)
+        self.mesh.replicate(module_tensors(self.G, self.D))
+        adam = dict(lr=tcfg.learning_rate, betas=tuple(tcfg.betas), eps=1e-8, mesh=self.mesh)
         self.params_g, self.params_d = list(self.G.parameters()), list(self.D.parameters())
         self.opt_g = Adam(self.params_g, **adam)
         self.opt_d = Adam(self.params_d, **adam, weight_decay=tcfg.discriminator_weight_decay)
@@ -80,13 +86,16 @@ class UncondGANTrainer:
                    eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One step on ``{"image": (B, H, W, 1)}``; ``z_g`` (the G update's
         latents), ``z_d`` (the D update's) and ``eps`` (the penalty's
-        ``(B, 1, 1, 1)`` weights) are drawn when None. Returns the metrics
-        as 0-d tensors on the device."""
-        x = batch["image"]
-        b = x.shape[0]
+        ``(B, 1, 1, 1)`` weights) are drawn when None. Under a mesh all four
+        are global and each rank steps on its shard. Returns the metrics (of
+        this rank's shard) as 0-d tensors on the device."""
+        b = batch["image"].shape[0]
+        self.mesh.check_batch(b)
+        shard = self.mesh.shard
+        x = shard(batch["image"])
         wgan = self.tcfg.loss_mode == "wgan"
         if self.step % self.tcfg.d_updates_per_g_update == 0:
-            z_g = self._normal(b) if z_g is None else z_g
+            z_g = shard(self._normal(b) if z_g is None else z_g)
             d = self._d(self.G(z_g, train=True))
             loss_g = bce_logits(d, 1) if not wgan else -d.mean()
             assign_grads(self.params_g, loss_g)
@@ -95,12 +104,13 @@ class UncondGANTrainer:
         else:
             loss_g = torch.zeros((), device=x.device)
 
-        z_d = self._normal(b) if z_d is None else z_d
+        z_d = shard(self._normal(b) if z_d is None else z_d)
         with torch.no_grad():
             fake = self.G(z_d, train=True)
         if wgan:
             if eps is None:
                 eps = torch.rand((b, 1, 1, 1), generator=self.rng, device=self.device)
+            eps = shard(eps)
             loss_d = wgan_disc_loss(self._d, x, fake, eps, self.tcfg.penalty_weight)
         else:
             loss_d = 0.5 * (bce_logits(self._d(x), 1) + bce_logits(self._d(fake), 0))
@@ -119,7 +129,7 @@ class UncondGANTrainer:
         mean metrics, fetched once at its end."""
         n = data["image"].shape[0]
         if self._fit_batch is None:
-            self._fit_batch = resolve_batch(n, self.tcfg.batch_size)
+            self._fit_batch = resolve_batch(n, self.tcfg.batch_size, self.mesh.world)
         bsz = self._fit_batch
         require_full_batch(n, bsz)
         nb = n // bsz
@@ -129,7 +139,7 @@ class UncondGANTrainer:
         for i in range(nb):
             m = self.train_step({"image": batches[i]})
             total += torch.stack([m[k] for k in METRICS])
-        return dict(zip(METRICS, (total / nb).tolist()))
+        return dict(zip(METRICS, (self.mesh.average_(total) / nb).tolist()))
 
     # ---------------------------------------------------------- state
 

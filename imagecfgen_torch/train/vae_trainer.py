@@ -2,8 +2,10 @@
 reference ``deepscm_vae/mnist.py:136-242``).
 
 Adam with optax's default betas, loss = -ELBO(``num_samples_per_step``,
-``kl_weight``), the port's one flat ``train.optim.Adam``. One card: the JAX
-trainer's data-parallel mesh is not carried. The encoder's trunk needs a
+``kl_weight``), the port's one flat ``train.optim.Adam``. Data parallelism as
+in ``train.gan_trainer`` (``mesh``): the ELBO's ``eps`` is drawn for the
+global batch and sliced per rank, one gradient all-reduce a step, the epoch's
+mean averaged over the ranks at its end. The encoder's trunk needs a
 gradient here, so it runs as its ``PlanSequential``, never through the
 ``fused_encoder`` kernel (see ``models/vae.py``).
 
@@ -24,6 +26,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.vae import ConditionalVAE
+from ..parallel.mesh import DataMesh, data_mesh, module_tensors
 from ._guards import require_full_batch, resolve_batch
 from .optim import Adam, adam_state, assign_grads, load_adam_state
 
@@ -41,13 +44,16 @@ class VAETrainer:
     generator of the ELBO's noise and of the epoch permutations."""
 
     def __init__(self, model: ConditionalVAE, tcfg: VAETrainConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[DataMesh] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh or data_mesh(None)
         self.model = model.to(self.device)
         self.tcfg = tcfg
         self.params = list(model.parameters())
+        self.mesh.replicate(module_tensors(model))
         # optax.adam(lr)'s defaults: betas 0.9 and 0.999, eps 1e-8
-        self.opt = Adam(self.params, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        self.opt = Adam(self.params, lr=tcfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                        mesh=self.mesh)
         self.step = 0
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         self._fit_batch: Optional[int] = None
@@ -59,8 +65,15 @@ class VAETrainer:
                                 self.tcfg.kl_weight, train=True, rng=self.rng, eps=eps)
 
     def train_step(self, batch: Mapping, eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """One Adam update; returns ``{"neg_elbo"}`` as a 0-d tensor on the
-        device."""
+        """One Adam update; returns ``{"neg_elbo"}`` (of this rank's shard)
+        as a 0-d tensor on the device. ``batch`` and ``eps`` are global
+        (``eps`` drawn here for the global batch when None; the encoder draws
+        nothing, so this is the draw the ELBO would make) and each rank steps
+        on its shard."""
+        if eps is None:
+            eps = self.model.draw_eps(batch["image"].shape[0], self.tcfg.num_samples_per_step,
+                                      batch["image"], self.rng)
+        batch, eps = self.mesh.shard_batch(batch), self.mesh.shard(eps)
         loss = self.loss(batch, eps)
         assign_grads(self.params, loss)
         self.opt.step()
@@ -82,7 +95,7 @@ class VAETrainer:
         total = torch.zeros((), device=self.device)
         for i in range(xs.shape[0]):
             total += self.train_step({"image": xs[i], "attrs": {k: v[i] for k, v in attrs.items()}})["neg_elbo"]
-        return {"neg_elbo": (total / xs.shape[0]).item()}
+        return {"neg_elbo": (self.mesh.average_(total) / xs.shape[0]).item()}
 
     def upload_dataset(self, x, attrs: Mapping) -> Dict:
         """``{"image", "attrs"}`` on the trainer's device, once."""
@@ -94,7 +107,7 @@ class VAETrainer:
         dropped)."""
         n = data["image"].shape[0]
         if self._fit_batch is None:
-            self._fit_batch = resolve_batch(n, self.tcfg.batch_size)
+            self._fit_batch = resolve_batch(n, self.tcfg.batch_size, self.mesh.world)
         bsz = self._fit_batch
         require_full_batch(n, bsz)
         nb = n // bsz

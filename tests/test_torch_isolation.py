@@ -290,3 +290,11 @@ def test_marine_slice_entry_points_raise_when_no_gpu(monkeypatch, entry):
             BiGAN(esrf_bigan_config(2, 32))
         else:
             ConditionalVAE(whale_vae_config(2, 32))
+
+
+def test_sources_cover_the_parallel_and_utility_modules():
+    """Pin that the glob reaches data and spatial parallelism (their launcher
+    too) and the profiling, logging and heartbeat utilities."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert {f"imagecfgen_torch/parallel/{m}.py" for m in ("__init__", "mesh", "spatial", "launch")} <= names
+    assert {f"imagecfgen_torch/utils/{m}.py" for m in ("__init__", "profiling", "logging", "heartbeat")} <= names
