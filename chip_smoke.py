@@ -25,7 +25,8 @@ Phases (any failure ends the run with a non-zero exit):
    ``do(thickness + 2)`` and ``reconstruct`` at full width, with the kernels'
    launch counts read around that run only;
 4. times with CUDA events: each kernel, its plain version, the PyTorch
-   library stack computing the same function, and the engine's rate;
+   library stack computing the same function (its device time under
+   ``torch.profiler`` too), and the engine's rate;
 
 and for the AudioMNIST scoring path (``--audio-batch``):
 
@@ -83,6 +84,23 @@ T4. GAN training on AudioMNIST at full width, batch 32, 5 steps (``init_std``
 T5. both attribute SCMs' MLE ``fit`` on a few thousand synthetic rows: the
     NLL falls, and ``sample_cf`` on the fitted SCM passes the serving checks.
 
+and for checkpoints of the original PyTorch ImageCFGen (the reference), first
+in the CLI block:
+
+R. reference-format state-dict files written from ``--seed`` at full width
+   (``imagecfgen_torch/tools/reference_fixtures.py``): the main path's MNIST
+   BiGAN and the AudioMNIST digit classifier. ``python -m
+   imagecfgen_torch.cli.convert_reference_checkpoint`` converts both at once,
+   in two processes (the BiGAN with ``--data-dir`` on ``--batch`` rows of
+   the phase's own); the port's loaders read the files, every reference
+   tensor must sit where the fixture's map puts it, bit for bit; the engine
+   on the converted BiGAN at ``--batch``, ``do(thickness + 2)``, launches
+   ``fused_encoder`` once and the converted classifier on ``--audio-batch``
+   images launches ``fused_dense`` once at (``--audio-batch``, 4096, 1024),
+   each count read around that run alone, and both kernels are held against
+   their plain versions on those launches' inputs; the converters' seconds go
+   into a ``cli_seconds`` line.
+
 and for the port's MNIST CLIs, run through their ``main`` with ``--device
 cuda`` as a user runs them:
 
@@ -110,7 +128,7 @@ C4. checks: every artifact loads back, every PNG decodes to its size, the
 and for the paper's Morpho-MNIST comparison, the same way, on C1-C4's
 artifacts:
 
-M1. synthesis: ``create_train_dataset --synthetic 512 --scale 16`` and
+M1. synthesis: ``create_train_dataset --synthetic 256 --scale 16`` and
     ``create_test_dataset --synthetic 256`` with ``--workers`` at the host's
     core count, and the test split once more with ``--noise-std 8`` into a
     second directory: shapes and the 13-column layout, no glyph whose
@@ -223,9 +241,11 @@ F1. the four MNIST figure CLIs on C1's dataset and C2's and M3's models:
     ``display_thickness`` (the kernel at (8, 28, 28, 5)), ``causal_graph_cf``
     (at (40, 28, 28, 5)), ``uncertainty_evolution`` and ``cf_automatic_mix``
     on the VAE and on the BiGAN (at (1, 28, 28, 5)): each PNG read back with
-    ``read_png`` at its size and not blank, one ``fused_encoder`` launch each,
-    the kernel held against its plain version and float64 at every shape
-    they launch (AU5's recording shim);
+    ``read_png`` at its size and not blank, one ``fused_encoder`` launch each;
+    then ``mnist_mix_vae_gui --headless``: its 4 x 5 grid (112 x 140) not
+    blank, exactly 16 launches, all at (1, 28, 28, 5) (15 counterfactuals and
+    the digit mix's one encode); the kernel held against its plain version
+    and float64 at every shape they launch (AU5's recording shim);
 AV1. ``train_audio_mnist_vae`` at d = 64 for one epoch, then ``--resume`` for
      a second, against an uninterrupted two-epoch run, bit for bit (cuDNN's
      deterministic algorithms); 0 ``fused_encoder`` launches (E needs a
@@ -320,7 +340,7 @@ bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``, the marine
 CLIs' for ``fused_encoder:whale``, ``fused_encoder:whale_vae``,
 ``fused_encoder:esrf`` and ``fused_dense:narw``, and D1's two ranks' for
 ``fused_encoder:dp_rank``; ``train_launches`` over ``train_steps``: the training path's;
-``cli_launches``: each CLI run's at the row's shape, C, M, X and AU phases;
+``cli_launches``: each CLI run's at the row's shape, R, C, M, X, F and AU phases;
 the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
 CLIs' at every batch); the last line of output
 is ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -818,6 +838,7 @@ def audio_phases(args, dev, card, peak):
             trunk_plain_ms = time_ms(lambda: fused_encoder_reference(tfeats, pairs, conv_ops), reps=2, warmup=1)
             trunk_lib_ms = time_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=10, warmup=2)
             trunk_device_ms = device_ms(lambda: fused_encoder_forward(cast, tfeats, plan), reps=5)
+            trunk_lib_device_ms = device_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=5)
             lib = library_stack(tfeats, pairs, conv_ops).float()
             plain = fused_encoder_reference(tfeats, pairs, conv_ops).float()
             lib_err = (lib - plain).abs().max().item()
@@ -857,7 +878,7 @@ def audio_phases(args, dev, card, peak):
             row("fused_encoder:audio_mnist", dtype, "imagecfgen_torch/csrc/fused_encoder.cu",
                 "imagecfgen_tpu/ops/pallas/fused_encoder.py:127", launches["fused_encoder"], trunk_err,
                 trunk_ms, trunk_plain_ms, trunk_lib_ms, tflops, tbytes, peak, card, batch=b,
-                device_ms=trunk_device_ms),
+                device_ms=trunk_device_ms, library_device_ms=trunk_lib_device_ms),
             row("fused_dense", dtype, "imagecfgen_torch/csrc/fused_dense.cu",
                 "imagecfgen_tpu/ops/pallas/fused_dense.py:57", launches["fused_dense"],
                 max(dense_errs[dtype]), dense_ms, dense_plain_ms, dense_lib_ms, dflops, dbytes, peak,
@@ -1588,7 +1609,7 @@ def cli_phases(args, dev, card, tmp: str):
 # a CPU rehearsal the 256 glyphs of that split read 0.0869, 0.0 and 0.00182
 # (the oracle's own error: perturbation, downscaling and re-measurement).
 ORACLE_BOUNDS = {"thickness": 0.2, "intensity": 0.01, "slant": 0.01}
-M_TRAIN, M_TEST = 512, 256  # glyphs synthesised by M1 (at --scale 16, as the reference)
+M_TRAIN, M_TEST = 256, 256  # glyphs synthesised by M1 (at --scale 16, as the reference)
 PANEL = 96  # the measured-CF panels' size (cli/common.py::scatter_panel)
 
 
@@ -1976,13 +1997,14 @@ def dtype_name(dtype) -> str:
 
 
 @contextlib.contextmanager
-def recording_launches(seen: dict, label: str, firsts: list | None = None):
+def recording_launches(seen: dict, label: str, firsts: list | None = None, shapes: list | None = None):
     """Both kernels' launches with the inputs of the first launch at each
     (kernel, type, shape) copied into ``seen`` under the CLI run ``label``
     that gave it (``plan_gemm`` picks tiles and K splits from the shape);
     with ``firsts``, a copy of the first conv kernel of every trunk launch,
-    which tells apart the models a run launched. The wrappers' own launch
-    functions still launch and count."""
+    which tells apart the models a run launched; with ``shapes``, the input
+    shape of every trunk launch. The wrappers' own launch functions still
+    launch and count."""
     from imagecfgen_torch.ops import fused_dense as fd
     from imagecfgen_torch.ops import fused_encoder as fe
 
@@ -1991,6 +2013,8 @@ def recording_launches(seen: dict, label: str, firsts: list | None = None):
     def enc_shim(feats, pairs, conv_ops, first):
         if firsts is not None:
             firsts.append(pairs[0][0].detach().clone())
+        if shapes is not None:
+            shapes.append(tuple(feats.shape))
         key = ("fused_encoder", TAG[feats.dtype], tuple(feats.shape))
         if key not in seen:
             seen[key] = (label, feats.clone(), [(w.detach().clone(), b.detach().clone()) for w, b in pairs],
@@ -2409,10 +2433,11 @@ def precision_phase(args, dev, card, models: str):
 
 
 def figure_phases(args, dev, card, tmp: str):
-    """Phase F1: the four MNIST figure CLIs on C1's dataset and C2's and
-    M3's models, in ``tmp/figures``: each PNG read back at its size and not
-    blank, one ``fused_encoder`` launch each, the kernel held at every shape
-    they launch it at. Returns ({kernel: {CLI run: launches}}, lines)."""
+    """Phase F1: the four MNIST figure CLIs and the headless mix GUI on C1's
+    dataset and C2's and M3's models, in ``tmp/figures``: each PNG read back
+    at its size and not blank, one ``fused_encoder`` launch each (the GUI:
+    16, all at (1, 28, 28, 5)), the kernel held at every shape they launch it
+    at. Returns ({kernel: {CLI run: launches}}, lines)."""
     from imagecfgen_torch.cli.common import read_png
     from imagecfgen_torch.models.bigan import mnist_bigan_config
 
@@ -2436,12 +2461,145 @@ def figure_phases(args, dev, card, tmp: str):
                                                               f"values, not a {shape} figure")
         check(launches["fused_encoder"][label] == 1, f"F1: {label}: {launches['fused_encoder'][label]} "
                                                      "fused_encoder launches, not one")
+    # the headless GUI: 15 counterfactuals (one encode each) and one encode for the digit mix, all at B = 1
+    label, png, gui_shapes = "mnist_mix_vae_gui --headless", os.path.join(out, "mnist-mix-gui.png"), []
+    with recording_launches(seen, label, shapes=gui_shapes):
+        run(label, "mnist_mix_vae_gui", *src, "--headless", "--output", png)
+    pix = read_png(png)
+    check(pix.shape == (4 * 28, 5 * 28) and np.unique(pix).size > 1,
+          f"F1: {png} is {pix.shape} with {np.unique(pix).size} values, not a 4 x 5 grid of digits")
+    check(launches["fused_encoder"][label] == 16 and gui_shapes == [(1, 28, 28, 5)] * 16,
+          f"F1: the GUI launched fused_encoder {launches['fused_encoder'][label]} times at {sorted(set(gui_shapes))}, "
+          "not 16 times at (1, 28, 28, 5)")
     shapes = check_seen_launches(seen, mnist_bigan_config().enc_plan)
     got = {(kernel, tag, shape[0]) for kernel, tag, shape in seen}
     want = {("fused_encoder", "f32", b) for b in (8, 40, 1)}
     check(want == got, f"F1: launches at {sorted(got)}, not {sorted(want)}")
     return launches, [{"launch_shapes": "F1", "checked": shapes, "card": card},
                       {"cli_seconds": secs, "phase": "F", "card": card}]
+
+
+R_KINDS = ("mnist-bigan", "audio-clf")  # the reference files phase R converts
+
+
+def reference_phase(args, dev, card, tmp: str):
+    """Phase R: checkpoints in the original PyTorch ImageCFGen's format,
+    written from ``--seed`` at full width (``imagecfgen_torch/tools/
+    reference_fixtures.py``): the main path's MNIST BiGAN and the AudioMNIST
+    digit classifier. ``python -m imagecfgen_torch.cli.convert_reference_checkpoint``
+    converts each, both at once, each in a process of its own (the BiGAN's
+    scaler fitted with ``--data-dir`` on the phase's ``--batch`` rows). The
+    port's loaders read the files back, and the phase holds: every reference
+    tensor where the fixture's map says, bit for bit; the engine on the
+    converted BiGAN at ``--batch`` with ``do(thickness + 2)`` launching
+    ``fused_encoder``, and the converted classifier on ``--audio-batch``
+    images launching ``fused_dense`` at (``--audio-batch``, 4096, 1024), each
+    count read around that run alone; both kernels against their plain
+    versions on the inputs of those launches. Returns ({kernel: {run:
+    launches}}, lines)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from imagecfgen_torch.cf.engine import CounterfactualEngine
+    from imagecfgen_torch.cli.audio_common import load_audio_classifier
+    from imagecfgen_torch.cli.common import bigan_from_state, load_bigan
+    from imagecfgen_torch.core.attributes import one_hot, pack_mnist_attrs
+    from imagecfgen_torch.core.checkpoint import load_train_state
+    from imagecfgen_torch.models.bigan import mnist_bigan_config
+    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu
+    from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward
+    from imagecfgen_torch.scm.mnist import MNISTAttributeSCM, build_mnist_graph
+    from imagecfgen_torch.tools.reference_fixtures import check_mapped, reference_checkpoint
+
+    b, ab = args.batch, args.audio_batch
+    root, here = os.path.join(tmp, "reference"), os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    rng = np.random.default_rng(args.seed + 50)
+    x = rng.uniform(-1, 1, (b, 28, 28, 1)).astype(np.float32)
+    t = (rng.gamma(10, 1 / 5, b) + 0.5).astype(np.float32)
+    i = (191 / (1 + np.exp(-(2 * t - 5))) + 64).astype(np.float32)
+    s = (np.pi * rng.normal(0, 0.1, b)).astype(np.float32)
+    raw = {"digit": one_hot(rng.integers(0, 10, b), 10).astype(np.float32), "thickness": t, "intensity": i,
+           "slant": s}
+    np.save(os.path.join(data, "mnist-x-train.npy"), np.round((x[..., 0] + 1) * 127.5).astype(np.uint8))
+    np.save(os.path.join(data, "mnist-a-train.npy"), pack_mnist_attrs(raw))
+
+    srcs, outs, objs, maps = {}, {}, {}, {}
+    for kind in R_KINDS:  # full width: latent 512; the classifier at width 1.0, ten classes
+        objs[kind], maps[kind] = reference_checkpoint(kind, args.seed + 51)
+        srcs[kind], outs[kind] = os.path.join(root, f"{kind}.tar"), os.path.join(root, f"{kind}-port.tar")
+        torch.save(objs[kind], srcs[kind])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (here, os.environ.get("PYTHONPATH")))))
+
+    def convert(kind):
+        flags = ("--data-dir", data) if kind == "mnist-bigan" else ()
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "imagecfgen_torch.cli.convert_reference_checkpoint",
+                               "--kind", kind, "--input", srcs[kind], "--output", outs[kind], *flags,
+                               "--device", dev.type], cwd=here, env=env, capture_output=True, text=True,
+                              timeout=600)
+        return done, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(R_KINDS)) as pool:
+        results = dict(zip(R_KINDS, pool.map(convert, R_KINDS)))
+    secs, sizes = {}, {}
+    for kind, (done, sec) in results.items():
+        label = f"convert_reference_checkpoint --kind {kind}"
+        secs[label], sizes[kind] = sec, os.path.getsize(srcs[kind])
+        print("".join(f"  {label}| {line}\n" for line in done.stdout.splitlines()), end="")
+        print(f"R {label}: exit {done.returncode} in {sec:.2f} s ({sizes[kind] / 2**20:.1f} MiB in)")
+        check(done.returncode == 0, f"R: {label} failed: {done.stderr[-2000:]}")
+
+    # every reference tensor in the port's files, bit for bit
+    state, scaler, meta = load_bigan(outs["mnist-bigan"], dev)
+    check(meta.get("scaler_valid") is True, f"R: the BiGAN's scaler was not fitted ({meta})")
+    n_bigan = check_mapped(maps["mnist-bigan"], objs["mnist-bigan"], {p: state[p] for p in "EGD"})
+    clf_state = load_train_state(outs["audio-clf"], dev)[0]
+    n_clf = check_mapped(maps["audio-clf"], objs["audio-clf"], {"module": clf_state["module"]})
+    del clf_state
+    print(f"R: {n_bigan} BiGAN and {n_clf} classifier tensors where the reference map puts them, bit for bit")
+
+    launches, seen = {"fused_encoder": {}, "fused_dense": {}}, {}
+    graph = build_mnist_graph(i.min(), i.max(), s.min(), s.max())
+    scm = MNISTAttributeSCM(graph, *graph.init(seeded(args.seed + 52), dev))
+    engine = CounterfactualEngine(bigan_from_state(state, mnist_bigan_config(), dev), scm, scaler, dev)
+    xd = torch.from_numpy(x).to(dev)
+    attrs = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    do = {"thickness": torch.from_numpy(t + 2).reshape(-1, 1).to(dev)}
+    label = "R: the converted mnist-bigan's engine"
+    sync(dev)
+    fused_encoder_forward.launches = fused_dense_lrelu.launches = 0
+    with recording_launches(seen, label):
+        x_cf, cf_attrs = engine.counterfactual(xd, attrs, do)
+        sync(dev)
+    launches["fused_encoder"][label] = fused_encoder_forward.launches
+    launches["fused_dense"][label] = fused_dense_lrelu.launches
+    check(launches["fused_encoder"][label] == 1, f"{label}: {launches['fused_encoder'][label]} fused_encoder launches")
+    check(x_cf.shape == (b, 28, 28, 1) and bool(torch.isfinite(x_cf).all()) and x_cf.abs().max().item() <= 1.0,
+          f"{label}: image {tuple(x_cf.shape)} not finite in [-1, 1]")
+    check(torch.equal(cf_attrs["thickness"], do["thickness"].reshape(-1)), f"{label}: do(thickness) lost")
+
+    clf, _, cmeta = load_audio_classifier(outs["audio-clf"], 10, dev)
+    check(cmeta["width"] == 1.0 and cmeta["kind"] == "audio-mnist-clf", f"R: classifier meta {cmeta}")
+    label = "R: the converted audio-clf"
+    xa = torch.from_numpy(rng.uniform(-1, 1, (ab, 128, 128, 1)).astype(np.float32)).to(dev)
+    sync(dev)
+    fused_encoder_forward.launches = fused_dense_lrelu.launches = 0
+    with recording_launches(seen, label), torch.no_grad():
+        logits = clf(xa)
+        sync(dev)
+    launches["fused_encoder"][label] = fused_encoder_forward.launches
+    launches["fused_dense"][label] = fused_dense_lrelu.launches
+    check(launches["fused_dense"][label] == 1, f"{label}: {launches['fused_dense'][label]} fused_dense launches")
+    check(logits.shape == (ab, 10) and bool(torch.isfinite(logits).all()), f"{label}: logits {tuple(logits.shape)}")
+
+    checked = check_seen_launches(seen, mnist_bigan_config().enc_plan)
+    got = {(kernel, tag, shape) for kernel, tag, shape in seen}
+    want = {("fused_encoder", "f32", (b, 28, 28, 5)), ("fused_dense", "f32", (ab, 4096, 1024))}
+    check(got == want, f"R: launches at {sorted(got)}, not {sorted(want)}")
+    return launches, [{"reference": "R", "tensors_bit_for_bit": {"mnist-bigan": n_bigan, "audio-clf": n_clf},
+                       "input_bytes": sizes, "launch_shapes": checked, "card": card},
+                      {"cli_seconds": secs, "phase": "R", "card": card}]
 
 
 G1_D, G1_BATCH = 64, 64
@@ -3360,6 +3518,7 @@ def main(argv=None) -> int:
             plain_ms = time_ms(lambda: fused_encoder_reference(tfeats, pairs, conv_ops), reps=3, warmup=1)
             library_ms = time_ms(lambda: library_stack(tfeats, pairs, conv_ops))
             kernel_device_ms = device_ms(lambda: fused_encoder_forward(cast, tfeats, plan), reps=10)
+            library_device_ms = device_ms(lambda: library_stack(tfeats, pairs, conv_ops), reps=10)
             lib_err = (library_stack(tfeats, pairs, conv_ops).float() - plain.float()).abs().max().item()
             # cuDNN's bf16 stack rounds at other places than the fused trunk: printed, gated in f32 only
             print(f"library stack MNIST trunk [{TAG[dtype]}]: max|library - plain| = {lib_err:.3e}")
@@ -3371,7 +3530,7 @@ def main(argv=None) -> int:
         kernels.append(row("fused_encoder", dtype, "imagecfgen_torch/csrc/fused_encoder.cu",
                            "imagecfgen_tpu/ops/pallas/fused_encoder.py:127", launches, err,
                            kernel_ms, plain_ms, library_ms, flops, nbytes, peak, card, batch=b,
-                           device_ms=kernel_device_ms))
+                           device_ms=kernel_device_ms, library_device_ms=library_device_ms))
         engine_lines.append({
             "engine": "counterfactual do(thickness+2)",
             "compute_dtype": TAG[dtype],
@@ -3404,6 +3563,8 @@ def main(argv=None) -> int:
 
     # ------- C1-C4, M1-M5, X1-X3. the MNIST CLIs, the comparison, the explainers
     with tempfile.TemporaryDirectory() as tmp:
+        stamp("R")
+        r_launches, r_lines = reference_phase(args, dev, card, tmp)
         stamp("C1-C4")
         cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
         stamp("M1-M5")
@@ -3424,10 +3585,10 @@ def main(argv=None) -> int:
         stamp("D1-D3")
         d_lines, dp_row = parallel_phases(args, dev, card, peak, tmp)
         stamp("the end")
-    for more in (m_launches, x_launches, f_launches):
+    for more in (r_launches, m_launches, x_launches, f_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines
+    cli_lines += r_lines + m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines
     for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)

@@ -31,9 +31,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.stft import StftConfig, spectrogram
+from ..ops.stft import StftConfig, griffin_lim, spectrogram
 
 ESRF_STFT = StftConfig(n_fft=1023, win_length=256, hop_length=79, pad=200)
+ESRF_GL_STFT = StftConfig(n_fft=1023, win_length=256, hop_length=79, pad=0)
 SAMPLE_RATE = 8000
 WINDOW_SECONDS = 5
 N_SAMPLES = WINDOW_SECONDS * SAMPLE_RATE
@@ -43,6 +44,13 @@ def esrf_spectrogram_batch(audio: torch.Tensor, cfg: StftConfig = ESRF_STFT) -> 
     """``(B, 40000)`` windows -> ``(B, 512, 512)`` log power spectrograms,
     ``log(Spectrogram(x) + 1e-6)``, on ``audio``'s device."""
     return torch.log(spectrogram(audio, cfg) + 1e-6)
+
+
+def esrf_audio_from_log_spect(log_spec: torch.Tensor, rng: Optional[torch.Generator] = None,
+                              n_iter: int = 32, angle: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The inverse: exp, then Griffin-Lim without the explicit pad.
+    ``angle`` injects the initial phase."""
+    return griffin_lim(torch.exp(log_spec), ESRF_GL_STFT, rng=rng, n_iter=n_iter, angle=angle)
 
 
 def distance_from_bg_columns(bg_matrix: np.ndarray) -> np.ndarray:

@@ -35,6 +35,28 @@ class Normal:
 
 
 @dataclasses.dataclass(frozen=True)
+class Uniform:
+    low: float = 0.0
+    high: float = 1.0
+    event_shape: Tuple[int, ...] = (1,)
+
+    def sample(self, rng: Optional[torch.Generator], n: int, device=None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``n`` draws of U(low, high); ``u`` injects the U(0, 1) draw."""
+        if u is None:
+            u = torch.rand((n, *self.event_shape), generator=rng)
+        return torch.clamp(u.to(device) * (self.high - self.low) + self.low, min=self.low)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        """``-log(high - low)`` an element inside ``[low, high]``, ``-inf``
+        outside, summed over the event."""
+        inside = (x >= self.low) & (x <= self.high)
+        lp = torch.where(inside, torch.full_like(x, -math.log(self.high - self.low)),
+                         torch.full_like(x, -math.inf))
+        return lp.reshape(x.shape[0], -1).sum(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
 class Gumbel:
     """Standard Gumbel(0, 1) — the exogenous noise of categorical
     mechanisms."""

@@ -298,3 +298,29 @@ def test_sources_cover_the_parallel_and_utility_modules():
     names = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {f"imagecfgen_torch/parallel/{m}.py" for m in ("__init__", "mesh", "spatial", "launch")} <= names
     assert {f"imagecfgen_torch/utils/{m}.py" for m in ("__init__", "profiling", "logging", "heartbeat")} <= names
+
+
+def test_sources_cover_the_last_slice():
+    """Pin that the glob reaches the reference-checkpoint converter (its
+    library, its CLI and the fixtures that write reference-format files), the
+    headless mix GUI and the plot helpers."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert {"imagecfgen_torch/core/reference.py", "imagecfgen_torch/cli/convert_reference_checkpoint.py",
+            "imagecfgen_torch/tools/reference_fixtures.py", "imagecfgen_torch/cli/mnist_mix_vae_gui.py",
+            "imagecfgen_torch/morphomnist/util.py"} <= names
+
+
+@pytest.mark.parametrize("entry", ["convert_reference_checkpoint", "mnist_mix_vae_gui"])
+def test_last_slice_entry_points_raise_when_no_gpu(monkeypatch, entry, tmp_path):
+    from imagecfgen_torch.cli import convert_reference_checkpoint, mnist_mix_vae_gui
+    from imagecfgen_torch.tools.reference_fixtures import reference_checkpoint
+
+    torch.save(reference_checkpoint("mnist-clf", 0)[0], tmp_path / "ref.tar")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "convert_reference_checkpoint":
+            convert_reference_checkpoint.main(["--kind", "mnist-clf", "--input", str(tmp_path / "ref.tar"),
+                                               "--output", str(tmp_path / "out.tar")])
+        else:
+            mnist_mix_vae_gui.main(["--headless", "--data-dir", str(tmp_path), "--model-dir", str(tmp_path)])
+    assert not (tmp_path / "out.tar").exists()
