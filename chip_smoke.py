@@ -34,7 +34,9 @@ A2. ``fused_dense`` against its plain version at the classifier head's
     shape (``--audio-batch``, 4096, 1024) and at ragged shapes (one with a
     row stride that is no multiple of 16 bytes), and
     ``fused_encoder`` on the full-width ``audio_mnist_bigan_config()``
-    encoder trunk (5x5 kernels, 7 input channels, 128^2 input);
+    encoder trunk (5x5 kernels, 7 input channels, 128^2 input), and on the
+    narrow trunks of ``--d 8`` and ``--d 48`` at batch 4 (later layers on
+    ``conv_window`` or with their channels padded for ``conv_wgmma``);
 A3. the path end to end: ``cf_effectiveness_score`` (target ``digit``,
     ``--mc-rounds`` rounds) over the full-width AudioMNIST BiGAN, attribute
     SCM and classifier, with both kernels' launch counts read around that
@@ -602,7 +604,7 @@ def kernel_lines(log: str):
         used = re.search(r"Used (\d+) registers.*", chunk)
         if "__nv_bfloat16" in mangled:
             targs.insert(0, "bf16")
-        elif re.search(r"conv_\w+?If", mangled):
+        elif re.search(r"(conv|dense)_\w+?If", mangled):
             targs.insert(0, "f32")
         yield (f"  kernel {mangled_name(mangled)}<{','.join(targs)}>: "
                f"{used.group(0) if used else '?'}, {spills.group(0) if spills else '?'}")
@@ -727,13 +729,12 @@ def audio_phases(args, dev, card, peak):
     from imagecfgen_torch.models import layers
     from imagecfgen_torch.models.bigan import AUDIO_MNIST_SPEC, BiGAN, audio_mnist_bigan_config
     from imagecfgen_torch.models.classifier import CNNClassifier, audio_mnist_classifier_config
-    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu, fused_dense_reference
+    from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu, fused_dense_reference, launch_plan
     from imagecfgen_torch.ops.fused_encoder import (
         fused_encoder_forward,
         fused_encoder_reference,
         plan_conv_ops,
     )
-    from imagecfgen_torch.ops.tensor_core import plan_gemm, sm_count
     from imagecfgen_torch.scm.audio_mnist import AudioMNISTAttributeSCM, build_audio_mnist_graph
 
     b = args.audio_batch
@@ -753,7 +754,7 @@ def audio_phases(args, dev, card, peak):
         for dtype in DTYPES:
             x, w, bias = x32.to(dtype), w32.to(dtype), bias32.to(dtype)
             print(f"launch plan fused_dense {m}x{k}x{n} [{TAG[dtype]}]: "
-                  f"{plan_gemm(m, n, k, k, dtype, sm_count(dev)).describe()}")
+                  f"{launch_plan(w, m).describe()}")
             out = fused_dense_lrelu(x, w, bias, 0.2)
             torch.cuda.synchronize()
             dense_errs[dtype].append(agree(f"fused_dense {m}x{k}x{n}", out,
@@ -765,6 +766,15 @@ def audio_phases(args, dev, card, peak):
     params = trunk_params(plan, args.seed, dev, c_in=7, std=None)
     feats = tensor(rng.normal(0, 1, (b, 128, 128, 7)))
     trunk = {dtype: check_trunk("audio trunk", params, feats, plan, dtype) for dtype in DTYPES}
+    # the narrow trunks of the CLIs' --d: a later layer on conv_window, or on conv_wgmma with its
+    # input padded with zero channels to the slice depth (d = 8 and 48 reach both, in both types;
+    # split 1: the trunk's own input padded)
+    for d in (8, 48):
+        nplan = audio_mnist_bigan_config(d=d).enc_plan
+        nfeats = tensor(np.random.default_rng(args.seed + 100 + d).normal(0, 1, (4, 128, 128, 7)))
+        nparams = trunk_params(nplan, args.seed + 100 + d, dev, c_in=7, std=None)
+        for dtype in DTYPES:
+            check_trunk(f"audio trunk d={d}", nparams, nfeats, nplan, dtype, splits=(0, 1))
 
     # ----------------------------------------------------- A3. the path
     graph = build_audio_mnist_graph()
@@ -955,8 +965,8 @@ def near_kink(what: str, a, b, total_gate: float = 1e-5) -> int:
 def trunk_at_training_shape(name: str, encoder, x, attrs, plan, seed: int, dev, peak, card,
                             key: str = "kernel_at_training_shape"):
     """The trunk kernel against its plain version at the shape a trainer's
-    recompute phase (or another caller, named by ``key``) gives it
-    (``plan_gemm`` picks tiles and splits from the batch): on the model's own
+    recompute phase (or another caller, named by ``key``) gives it (the
+    launch plans follow the batch): on the model's own
     encoder weights and attribute channels, and on fan-in-scaled weights and
     N(0, 1) features of that shape, whose O(1) outputs make the float32 gate
     bite. Returns a line with the kernel's times at that shape beside its
@@ -2000,7 +2010,7 @@ def dtype_name(dtype) -> str:
 def recording_launches(seen: dict, label: str, firsts: list | None = None, shapes: list | None = None):
     """Both kernels' launches with the inputs of the first launch at each
     (kernel, type, shape) copied into ``seen`` under the CLI run ``label``
-    that gave it (``plan_gemm`` picks tiles and K splits from the shape);
+    that gave it (the launch plans follow the shape);
     with ``firsts``, a copy of the first conv kernel of every trunk launch,
     which tells apart the models a run launched; with ``shapes``, the input
     shape of every trunk launch. The wrappers' own launch functions still

@@ -1,54 +1,58 @@
-// The tensor-core main loop shared by fused_encoder.cu and fused_dense.cu:
-// one implicit-GEMM conv layer, y = act(conv(x, w) + b), on Hopper.
+// What the three tensor-core kernels of the port share (fused_encoder.cu,
+// fused_dense.cu), and the main loop of every conv layer but a trunk's first:
+// y = act(conv(x, w) + b) on Hopper as an implicit GEMM.
 //
 //   M = batch * OH * OW output pixels, N = CO channels, K = KS * KS * C taps.
 //   A (M x K) is gathered on the fly from the NHWC input (zero outside the
 //   image and past a ragged batch); B (N x K) is the weight matrix packed
 //   K-major by the wrapper (row stride Kp, K padded with zeros to a multiple
-//   of the slice depth). A dense layer is the same problem with H = W = 1,
-//   KS = 1 and C = K.
+//   of the slice depth).
 //
-// Two kernels share the staging and the epilogue:
-//   conv_wgmma  layers whose C is a multiple of the slice depth (every layer
-//               but a trunk's first; a dense layer with an aligned K):
-//               wgmma.mma_async, 64 rows per warpgroup, B (and for bf16 A)
-//               read from shared memory through matrix descriptors;
-//   conv_mma    the rest (a first layer with 5 or 7 channels, a dense layer
-//               with a ragged K): mma.sync on a masked scalar gather.
+// The kernels:
+//   conv_wgmma   (here) layers whose C is a multiple of the slice depth: every
+//                layer of a trunk at the default width but its first;
+//                replaces the TPU kernel's `_conv_block` from layer 2 on;
+//   conv_window  (fused_encoder.cu) the layers whose C is not (a trunk's first
+//                layer: 2, 3, 5 or 7 channels; the second to fourth of a
+//                narrow trunk): persistent blocks, the weights resident in
+//                shared memory, the im2col fragments built from an input
+//                window in shared memory. A layer whose weights and window
+//                would not fit there (C = 16 or 48 in f32, say) runs
+//                conv_wgmma instead, its input padded by the wrapper with
+//                zero channels to the slice depth: the layer before writes
+//                them from zero weights and bias;
+//   dense_tma    (fused_dense.cu) the dense head: the weight streamed once by
+//                TMA, a small batch as the wgmma's n.
 //
-// Types. T = __nv_bfloat16: bf16 products (m64nNk16 / m16n8k16) with f32
-// accumulators. T = float: 3xTF32 (m64nNk8 / m16n8k8). Every operand v is
-// split into hi = tf32(v) and lo = tf32(v - hi); the weights arrive already
-// split (two packed tensors), the gathered activations are split in
-// registers (so wgmma takes A from registers in f32), and
-// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi is accumulated in f32, small terms
-// first. That keeps f32-level accuracy; single-pass TF32 is never used.
-// The epilogue adds the bias, applies LeakyReLU and rounds once to T.
+// Types. T = __nv_bfloat16: bf16 products (m64nNk16) with f32 accumulators.
+// T = float: 3xTF32 (m64nNk8). Every operand v is split into hi = tf32(v)
+// and lo = tf32(v - hi), and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi is accumulated
+// in f32, small terms first. That keeps f32-level accuracy; single-pass TF32
+// is never used. The epilogue adds the bias, applies LeakyReLU and rounds
+// once to T.
 //
 // Promotion (float32). The tensor cores truncate when they add into a
 // float32 accumulator, and along a long K the truncations add up toward zero.
 // So a chain of tensor-core sums is kept short and the chains are added with
-// float32 FADDs, which round to nearest. conv_wgmma begins a fresh
+// float32 FADDs, which round to nearest: every float32 kernel begins a fresh
 // accumulator (scale-d 0) every K slice and adds it into a second register
-// array after the wgmma wait that float32 makes on every slice anyway; the
-// 512-thread tile has no registers for that array, and the plan gives it
-// bf16 layers only. conv_mma sums each 8-deep step's three products in a
-// fresh fragment and adds that into its sum. bf16 keeps one sum: its outputs
-// round to 8 bits, hundreds of times the drift, and a promoted bf16 loop
-// measured 13 % slower.
+// array after the wgmma wait that float32 makes on every slice anyway;
+// conv_window, whose K is only a few slices, every half slice, its large
+// terms a_hi*b_hi added last. The
+// 512-thread conv_wgmma tile has no registers for that array, and the plan
+// gives it bf16 layers only. bf16 keeps one sum: its outputs round to 8 bits,
+// hundreds of times the drift, and a promoted bf16 loop measured 13 % slower.
 //
-// Staging. A ring of STAGES tiles in dynamic shared memory, one K slice of
-// 128 bytes per row and stage (32 floats or 64 bf16), filled by 16-byte
-// cp.async copies with zero-fill, so loads for later slices are in flight
-// while a slice multiplies; one __syncthreads per slice. Rows are 128 bytes
-// and the 16-byte chunk c of row r sits at chunk c ^ (r & 7): that is the
-// 128-byte-swizzled K-major layout wgmma's descriptors name, and it keeps
-// the fragment loads (ld.shared.b32 for TF32, ldmatrix for bf16) and the
-// cp.async stores free of bank conflicts. In conv_wgmma a slice lies inside
-// one tap: (kh, kw, ci) advance by increments, one predicate per row decides
-// validity and the loads are 16 bytes along ci. In conv_mma the A tile is
-// gathered with masked scalar loads, all started before the first store. B is
-// always copied 16 bytes wide.
+// Staging (conv_wgmma). A ring of STAGES tiles in dynamic shared memory, one
+// K slice of 128 bytes per row and stage (32 floats or 64 bf16), filled by
+// 16-byte cp.async copies with zero-fill, so loads for later slices are in
+// flight while a slice multiplies; one __syncthreads per slice. Rows are 128
+// bytes and the 16-byte chunk c of row r sits at chunk c ^ (r & 7): that is
+// the 128-byte-swizzled K-major layout wgmma's descriptors name (and TMA's
+// SWIZZLE_128B writes), and it keeps the fragment loads and the cp.async
+// stores free of bank conflicts. A slice lies inside one tap: (kh, kw, ci)
+// advance by increments, one predicate per row decides validity and the
+// loads are 16 bytes along ci.
 //
 // Epilogue and split K. A block leaves its f32 tile in shared memory (the
 // ring is free by then) and stores it from there, 16 bytes a thread along a
@@ -57,10 +61,11 @@
 // blocks): after a cluster barrier block r sums rows [r*BM/S, (r+1)*BM/S) of
 // all S partial tiles through distributed shared memory in rank order
 // before the bias, LeakyReLU and the store: one launch, no scratch in
-// device memory, no atomics, the same bits on every run.
+// device memory, no atomics, the same bits on every run. dense_tma ends the
+// same way.
 //
-// The launch plan (tile shape, split, vector or scalar gather) is chosen in
-// Python (imagecfgen_torch/ops/tensor_core.py::plan_gemm) and handed in.
+// The launch plans are chosen in Python (imagecfgen_torch/ops/tensor_core.py:
+// plan_gemm, plan_window, plan_dense) and handed in.
 
 #pragma once
 
@@ -125,41 +130,6 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
   return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the same product with C = 0: the first of a fresh fragment
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -271,210 +241,6 @@ __device__ __forceinline__ void finish_tile(const ConvArgs& p, cg::cluster_group
   }
 }
 
-// One BM x BN output tile over the K slices of blockIdx.z, on mma.sync, with
-// the masked scalar gather: for layers whose C is no multiple of the slice
-// depth (a trunk's first layer, a dense layer with a ragged K).
-// Warps form a (BM / WM) x (BN / WN) grid; each keeps a WM x WN tile of f32
-// accumulators in mma fragments.
-template <typename T, int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
-conv_mma(const ConvArgs p) {
-  constexpr bool F32 = sizeof(T) == 4;
-  constexpr int BK = Elem<T>::BK;
-  constexpr int STAGES = Elem<T>::STAGES;
-  constexpr int NB = Elem<T>::NB;
-  constexpr int NT = (BM / WM) * (BN / WN) * 32;
-  constexpr int MT = WM / 16;  // m16 fragments per warp
-  constexpr int NF = WN / 8;   // n8 fragments per warp
-  constexpr int A_BYTES = BM * 128;
-  constexpr int B_BYTES = BN * 128;
-  constexpr int STAGE_BYTES = A_BYTES + NB * B_BYTES;
-  constexpr int ROWS = NT / BK;     // rows gathered per pass
-  constexpr int PASSES = BM / ROWS;
-  static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile must hold whole fragments");
-  static_assert((BN * 8) % NT == 0, "copy passes do not divide");
-  static_assert(NT % BK == 0 && BM % ROWS == 0, "scalar gather does not divide");
-  static_assert(STAGES * STAGE_BYTES >= BM * (BN + PART_PAD) * 4,
-                "the epilogue's tile does not fit the ring");
-
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ int4 rowinfo[BM];  // per output pixel: first input pixel, ih0, iw0
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int wm0 = (warp / (BN / WN)) * WM;
-  const int wn0 = (warp % (BN / WN)) * WN;
-  const int M = p.batch * p.OH * p.OW;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const T* __restrict__ x = static_cast<const T*>(p.x);
-
-  decode_rows<BM, NT>(p, rowinfo, M, m0, tid);
-  __syncthreads();
-
-  // this block's K slices
-  const int total = p.Kp / BK;
-  const int per = (total + p.split - 1) / p.split;
-  const int s_begin = blockIdx.z * per;
-  const int s_end = min(total, s_begin + per);
-  const int nslices = max(0, s_end - s_begin);
-
-  auto load_slice = [&](int s, int stage) {
-    unsigned char* a_tile = ring + stage * STAGE_BYTES;
-    // one reduction lane per thread, decoded once; every load of the slice
-    // is started before the first store, so that they overlap
-    const int kk = tid % BK;
-    const int k = s * BK + kk;
-    const bool kvalid = k < p.K;
-    const int tap = kvalid ? k / p.C : 0;
-    const int ci = k - tap * p.C;
-    const int kh = tap / p.KS;
-    const int kw = tap - kh * p.KS;
-    T v[PASSES];
-#pragma unroll
-    for (int i = 0; i < PASSES; ++i) {
-      const int4 info = rowinfo[tid / BK + i * ROWS];
-      const int ih = info.y + kh, iw = info.z + kw;
-      const bool ok = kvalid && (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W;
-      v[i] = ok ? x[(size_t)(info.x + ih * p.W + iw) * p.C + ci] : T(0.f);
-    }
-#pragma unroll
-    for (int i = 0; i < PASSES; ++i)
-      *reinterpret_cast<T*>(a_tile + swz(tid / BK + i * ROWS, kk * (int)sizeof(T))) = v[i];
-    copy_b_slice<T, BN, NT>(p, a_tile + A_BYTES, n0, s, tid);
-  };
-
-  float acc[MT][NF][4];  // f32: FADDs of fresh fragments
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nslices) load_slice(s_begin + s, s);
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < nslices; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice `it` has landed; the stage of slice it - 1 is free
-    {
-      const int nxt = it + STAGES - 1;
-      if (nxt < nslices) load_slice(s_begin + nxt, nxt % STAGES);
-      cp_async_commit();
-    }
-    const unsigned char* a_tile = ring + (it % STAGES) * STAGE_BYTES;
-    const unsigned char* b_tile = a_tile + A_BYTES;
-
-    if constexpr (F32) {
-      // one 8-deep step an iteration: unrolled, the steps' fragments and
-      // fresh sums are live at once, past the registers of two blocks an SM
-#pragma unroll 1
-      for (int ks = 0; ks < BK / 8; ++ks) {
-        const int kb0 = (ks * 8 + t) * 4, kb1 = kb0 + 16;
-        uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NF][2], b_lo[NF][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int r0 = wm0 + i * 16 + g, r1 = r0 + 8;
-          const float v[4] = {
-              *reinterpret_cast<const float*>(a_tile + swz(r0, kb0)),
-              *reinterpret_cast<const float*>(a_tile + swz(r1, kb0)),
-              *reinterpret_cast<const float*>(a_tile + swz(r0, kb1)),
-              *reinterpret_cast<const float*>(a_tile + swz(r1, kb1)),
-          };
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            a_hi[i][e] = to_tf32(v[e]);
-            a_lo[i][e] = to_tf32(v[e] - __uint_as_float(a_hi[i][e]));
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          const int n = wn0 + j * 8 + g;
-          b_hi[j][0] = *reinterpret_cast<const uint32_t*>(b_tile + swz(n, kb0));
-          b_hi[j][1] = *reinterpret_cast<const uint32_t*>(b_tile + swz(n, kb1));
-          b_lo[j][0] = *reinterpret_cast<const uint32_t*>(b_tile + B_BYTES + swz(n, kb0));
-          b_lo[j][1] = *reinterpret_cast<const uint32_t*>(b_tile + B_BYTES + swz(n, kb1));
-        }
-        // small terms first, into a fresh fragment; then one rounding FADD each
-        float f[MT][NF][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j) mma_tf32_first(f[i][j], a_lo[i], b_hi[j][0], b_hi[j][1]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j) mma_tf32(f[i][j], a_hi[i], b_lo[j][0], b_lo[j][1]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j) mma_tf32(f[i][j], a_hi[i], b_hi[j][0], b_hi[j][1]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] += f[i][j][e];
-      }
-    } else {
-      const uint32_t a_base = smem_addr(a_tile), b_base = smem_addr(b_tile);
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t a[MT][4], b[NF][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int r = wm0 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(a[i], a_base + swz(r, ks * 32 + (lane >> 4) * 16));
-        }
-#pragma unroll
-        for (int j = 0; j < NF; j += 2) {
-          const int n = wn0 + j * 8 + (lane & 7) + (lane >> 4) * 8;
-          uint32_t q[4];
-          ldmatrix_x4(q, b_base + swz(n, ks * 32 + ((lane >> 3) & 1) * 16));
-          b[j][0] = q[0];
-          b[j][1] = q[1];
-          b[j + 1][0] = q[2];
-          b[j + 1][1] = q[3];
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // the tile meets in shared memory (with a K split: in the cluster's
-  // distributed shared memory) and leaves in 16-byte stores
-  cg::cluster_group cluster = cg::this_cluster();
-  float* part = reinterpret_cast<float*>(ring);
-  __syncthreads();  // every warp is done with the ring
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(part + (wm0 + i * 16 + g + h * 8) * (BN + PART_PAD) + wn0 +
-                                   j * 8 + 2 * t) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-  if (p.split > 1) {
-    cluster.sync();
-  } else {
-    __syncthreads();
-  }
-  finish_tile<T, BM, BN, NT>(p, cluster, part, M, m0, n0, tid);
-  if (p.split > 1) cluster.sync();  // no block leaves while its partial tile is being read
-}
-
 // ---------------------------------------------------------------- wgmma
 // Warpgroup MMA (four warps, 64 rows, B from shared memory through a matrix
 // descriptor). The ring's tiles already have the layout the instruction
@@ -518,16 +284,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(add));
 }
 
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
-      "{%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
-}
-
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int add) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -538,6 +294,36 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(add));
 }
 
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int add) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -546,6 +332,75 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
       "{%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "{%8,%9,%10,%11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(add));
+}
+
+// ------------------------------------------------------- mbarrier and TMA
+// A transaction barrier in shared memory: a TMA copy signals the bytes it
+// landed, threads arrive, waiters spin on the phase's parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// a 2-D tile of a tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// a barrier of `threads` threads (a warpgroup's), apart from __syncthreads' 0
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // One BM x BN output tile over the K slices of blockIdx.z, on wgmma. Each
@@ -756,37 +611,27 @@ template <typename T> constexpr int ring_bytes(int bm, int bn) {
   return Elem<T>::STAGES * (bm * 128 + Elem<T>::NB * bn * 128);
 }
 
-// The tile shapes of the launch plan, by index (tensor_core.py::TILES).
-// Vector gather: the wgmma kernel; scalar gather: the mma.sync kernel.
+// The tile shapes of conv_wgmma's launch plan, by index (tensor_core.py::TILES);
+// + 1024: the ring is moved up to a 1024-byte boundary.
 template <typename T>
-cudaError_t launch_typed(int tile, bool vec, const ConvArgs& a, cudaStream_t s) {
-  if (vec) {  // + 1024: the ring is moved up to a 1024-byte boundary
-    switch (tile) {
-      case 0: return launch_kernel(conv_wgmma<T, 128, 128>, 128, 128, 256, ring_bytes<T>(128, 128) + 1024, a, s);
-      case 1: return launch_kernel(conv_wgmma<T, 128, 64>, 128, 64, 256, ring_bytes<T>(128, 64) + 1024, a, s);
-      case 2: return launch_kernel(conv_wgmma<T, 64, 64>, 64, 64, 128, ring_bytes<T>(64, 64) + 1024, a, s);
-      case 3:  // no promoted sum: bf16 only (the plan never gives float32 this tile)
-        if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
-        else return launch_kernel(conv_wgmma<T, 256, 128>, 256, 128, 512, ring_bytes<T>(256, 128) + 1024, a, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+cudaError_t launch_typed(int tile, const ConvArgs& a, cudaStream_t s) {
   switch (tile) {
-    case 0: return launch_kernel(conv_mma<T, 128, 128, 64, 32>, 128, 128, 256, ring_bytes<T>(128, 128), a, s);
-    case 1: return launch_kernel(conv_mma<T, 128, 64, 32, 32>, 128, 64, 256, ring_bytes<T>(128, 64), a, s);
-    case 2: return launch_kernel(conv_mma<T, 64, 64, 32, 16>, 64, 64, 256, ring_bytes<T>(64, 64), a, s);
+    case 0: return launch_kernel(conv_wgmma<T, 128, 128>, 128, 128, 256, ring_bytes<T>(128, 128) + 1024, a, s);
+    case 1: return launch_kernel(conv_wgmma<T, 128, 64>, 128, 64, 256, ring_bytes<T>(128, 64) + 1024, a, s);
+    case 2: return launch_kernel(conv_wgmma<T, 64, 64>, 64, 64, 128, ring_bytes<T>(64, 64) + 1024, a, s);
+    case 3:  // no promoted sum: bf16 only (the plan never gives float32 this tile)
+      if constexpr (sizeof(T) == 4) return cudaErrorInvalidValue;
+      else return launch_kernel(conv_wgmma<T, 256, 128>, 256, 128, 512, ring_bytes<T>(256, 128) + 1024, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// One layer on `stream`. `bf16`: T is __nv_bfloat16, else float.
-inline cudaError_t launch_layer(bool bf16, int tile, bool vec, const ConvArgs& a,
-                                cudaStream_t stream) {
+// One conv_wgmma layer on `stream`. `bf16`: T is __nv_bfloat16, else float.
+inline cudaError_t launch_layer(bool bf16, int tile, const ConvArgs& a, cudaStream_t stream) {
   if (a.split < 1 || a.split > 8 || a.KS < 1 || a.C < 1 || a.CO < 1) return cudaErrorInvalidValue;
   const int bk = bf16 ? Elem<__nv_bfloat16>::BK : Elem<float>::BK;
-  if (a.Kp % bk != 0 || a.Kp < a.K || (vec && a.C % bk != 0)) return cudaErrorInvalidValue;
-  return bf16 ? launch_typed<__nv_bfloat16>(tile, vec, a, stream)
-              : launch_typed<float>(tile, vec, a, stream);
+  if (a.Kp % bk != 0 || a.Kp < a.K || a.C % bk != 0) return cudaErrorInvalidValue;
+  return bf16 ? launch_typed<__nv_bfloat16>(tile, a, stream) : launch_typed<float>(tile, a, stream);
 }
 
 }  // namespace tcg

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Mapping, Sequence, Tuple
+from typing import List, Mapping, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +33,14 @@ from .conv import conv_out_size
 from .tensor_core import (
     DTYPES,
     GemmPlan,
+    WindowPlan,
     aligned16,
     cached,
+    fit_window,
     pack_conv_weight,
     padded_depth,
     plan_gemm,
+    slice_depth,
     sm_count,
 )
 
@@ -110,16 +113,38 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def trunk_launch_plan(in_shape: Sequence[int], kernel_shapes, conv_ops, dtype: torch.dtype,
-                      sms: int) -> List[GemmPlan]:
+                      sms: int) -> List[Union[GemmPlan, WindowPlan]]:
     """The launch plan of every layer of a trunk: ``in_shape`` is the
     (B, H, W, C) of the features, ``kernel_shapes`` the (O, I, k, k) of each
-    conv. A pure function, so it can be read without a card."""
-    bsz, h, w, c = in_shape
+    conv. A layer whose input channels are a multiple of the slice depth
+    runs ``conv_wgmma`` (a :class:`GemmPlan`); any other (a trunk's first,
+    or a later one of a narrow trunk) runs ``conv_window`` (a
+    :class:`WindowPlan`) where its block fits shared memory, and else
+    ``conv_wgmma`` on its input padded with zero channels to the next
+    multiple (the plan's ``cin``; the layer before writes them, from zero
+    weights and bias, and a trunk's input is copied). A pure function, so
+    it can be read without a card."""
+    bsz, h, w, _ = in_shape
+    bk = slice_depth(dtype)
     plans = []
     for (stride, pad, _), (co, ci, k, _) in zip(conv_ops, kernel_shapes):
-        h, w = conv_out_size(h, k, stride, pad), conv_out_size(w, k, stride, pad)
-        plans.append(plan_gemm(bsz * h * w, co, k * k * ci, ci, dtype, sms))
+        oh, ow = conv_out_size(h, k, stride, pad), conv_out_size(w, k, stride, pad)
+        plan = fit_window(bsz, h, w, ci, k, stride, pad, dtype) if ci % bk else None
+        if plan is None:
+            cin = -(-ci // bk) * bk
+            plan = plan_gemm(bsz * oh * ow, co, k * k * cin, cin, dtype, sms)
+        plans.append(plan)
+        h, w = oh, ow
     return plans
+
+
+@torch.no_grad()
+def padded_kernel(wt: torch.Tensor, co: int, ci: int) -> torch.Tensor:
+    """An (O, I, k, k) conv kernel with zero output channels up to ``co``
+    and zero input channels up to ``ci``. With its bias padded with zeros,
+    the channels it adds write zero (LeakyReLU(0) = 0), and those it reads
+    add nothing."""
+    return F.pad(wt, (0, 0, 0, 0, 0, ci - wt.shape[1], 0, co - wt.shape[0]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,26 +164,32 @@ def _kernel_entry():
 @functools.lru_cache(maxsize=None)
 def _recipe(in_shape, kernel_shapes, conv_ops, first: int, dtype: torch.dtype, sms: int):
     """What a launch needs beside pointers, made once per trunk shape: the
-    entry point's integer and slope arrays and each layer's output shape."""
+    entry point's integer and slope arrays, each layer's output shape and
+    the (output, input) channels each layer's weights are padded to."""
     bsz, h, w, c = in_shape
     plans = trunk_launch_plan(in_shape, kernel_shapes[first:], conv_ops[first:], dtype, sms)
-    ints, slopes, out_shapes = [], [], []
+    cins = [p.cin if isinstance(p, GemmPlan) else ks[1] for p, ks in zip(plans, kernel_shapes[first:])]
+    ints, slopes, out_shapes, channels = [], [], [], []
     for i, ((stride, pad, slope), (co, ci, k, _)) in enumerate(zip(conv_ops, kernel_shapes)):
         slopes.append(0.0 if slope is None else float(slope))
         if i < first:
-            ints += [k, stride, pad, co, int(slope is not None), 0, 0, 1, 0]
+            ints += [k, stride, pad, co, int(slope is not None), 0, 0, 1, 1]
             out_shapes.append(None)
+            channels.append(None)
             continue
         _check(ci == c, f"layer {i}: kernel takes {ci} channels, input has {c}")
-        plan = plans[i - first]
-        ints += [k, stride, pad, co, int(slope is not None), padded_depth(k * k * ci, dtype),
-                 plan.tile, plan.split, int(plan.vec)]
+        plan, cin = plans[i - first], cins[i - first]
+        cout = cins[i - first + 1] if i + 1 < len(conv_ops) else co
+        ints += [k, stride, pad, cout, int(slope is not None), padded_depth(k * k * cin, dtype)]
+        ints += ([plan.tile, plan.split, 1] if isinstance(plan, GemmPlan) else [plan.tr, plan.tw, 0])
         h, w, c = conv_out_size(h, k, stride, pad), conv_out_size(w, k, stride, pad), co
         _check(h > 0 and w > 0, f"layer {i}: empty output")
-        _check(bsz * h * w * c < 2 ** 31, f"layer {i}: an output of 2^31 elements or more")
-        out_shapes.append((bsz, h, w, c))
+        _check(bsz * h * w * cout < 2 ** 31, f"layer {i}: an output of 2^31 elements or more")
+        out_shapes.append((bsz, h, w, cout))
+        channels.append((cout, cin))
     n = len(conv_ops)
-    return (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * n)(*slopes), tuple(out_shapes)
+    return ((ctypes.c_int * len(ints))(*ints), (ctypes.c_float * n)(*slopes), tuple(out_shapes),
+            tuple(channels))
 
 
 def _launch(feats: torch.Tensor, pairs, conv_ops, first: int) -> torch.Tensor:
@@ -166,17 +197,23 @@ def _launch(feats: torch.Tensor, pairs, conv_ops, first: int) -> torch.Tensor:
     dtype = feats.dtype
     _check(feats.is_contiguous() and aligned16(feats), "features must be contiguous NHWC, 16-byte aligned")
     _check(feats.numel() < 2 ** 31, "features of 2^31 elements or more")
-    c_ints, c_slopes, out_shapes = _recipe(
+    c_ints, c_slopes, out_shapes, channels = _recipe(
         tuple(feats.shape), tuple(tuple(wt.shape) for wt, _ in pairs), tuple(conv_ops), first,
         dtype, sm_count(feats.device))
+    if channels[first][1] != feats.shape[3]:
+        feats = F.pad(feats, (0, channels[first][1] - feats.shape[3])).contiguous()
     ptrs, outs, keep = [], [], []
     for i, (wt, b) in enumerate(pairs):
         if i < first:
             ptrs += [None, None, None]
             outs.append(None)
             continue
-        packed = cached(wt, "packed_conv", pack_conv_weight)
-        bias = b.contiguous()
+        co, ci = channels[i]
+        if (co, ci) == tuple(wt.shape[:2]):
+            packed, bias = cached(wt, "packed_conv", pack_conv_weight), b.contiguous()
+        else:
+            packed = cached(wt, f"packed_conv:{co}x{ci}", lambda t: pack_conv_weight(padded_kernel(t, co, ci)))
+            bias = cached(b, f"bias:{co}", lambda t: F.pad(t.detach(), (0, co - t.shape[0])))
         keep += [packed, bias]
         ptrs += [packed[0].data_ptr(), packed[1].data_ptr() if len(packed) > 1 else None,
                  bias.data_ptr()]

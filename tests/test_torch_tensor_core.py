@@ -7,7 +7,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from imagecfgen_torch.models.bigan import audio_mnist_bigan_config, mnist_bigan_config
+from imagecfgen_torch.models.bigan import (
+    audio_mnist_bigan_config,
+    esrf_bigan_config,
+    mnist_bigan_config,
+    whale_bigan_config,
+)
 from imagecfgen_torch.ops import tensor_core as tc
 from imagecfgen_torch.ops.fused_encoder import (
     fused_encoder_reference,
@@ -17,6 +22,15 @@ from imagecfgen_torch.ops.fused_encoder import (
 
 F32, BF16 = torch.float32, torch.bfloat16
 SMS = 132  # an H100 SXM
+
+
+def h100_clusters(dtype, nx):
+    """Clusters of 1-8 ``dense_tma`` blocks an H100 SXM runs at once, as
+    ``fused_dense_clusters`` counted them on the card (float32 blocks of 16
+    or 32 x rows fit two an SM)."""
+    if dtype == F32 and nx <= 32:
+        return (264, 132, 79, 62, 47, 39, 32, 30)
+    return (132, 66, 39, 30, 22, 17, 15, 15)
 
 
 def _rand(shape, seed, scale=1.0):
@@ -164,17 +178,19 @@ def _trunk_shapes(cfg, cin):
 def test_every_layer_of_both_trunks_fills_the_card(path, dtype):
     """At the paths' full shapes every layer has blocks for at least 90 % of
     the SMs, or splits K over a cluster; only the first layer (5 or 7
-    channels) takes the scalar gather."""
+    channels) takes ``conv_window``, whose persistent blocks have at least
+    a tile each."""
     cfg, in_shape = ((mnist_bigan_config(), (2048, 28, 28, 5)) if path == "mnist"
                      else (audio_mnist_bigan_config(), (128, 128, 128, 7)))
     plans = trunk_launch_plan(in_shape, _trunk_shapes(cfg, in_shape[-1]),
                               plan_conv_ops(cfg.enc_plan), dtype, SMS)
     assert len(plans) == len(plan_conv_ops(cfg.enc_plan))
-    for i, p in enumerate(plans):
+    assert isinstance(plans[0], tc.WindowPlan) and plans[0].tiles >= SMS
+    for i, p in enumerate(plans[1:], 1):
+        assert isinstance(p, tc.GemmPlan), (i, p)
         assert p.blocks >= 0.9 * SMS or p.split > 1, (i, p)
         assert 1 <= p.split <= tc.MAX_SPLIT
         assert p.split == 1 or p.slices // p.split >= tc.MIN_SPLIT_SLICES
-        assert p.vec == (i > 0)
         assert (p.bm, p.bn) == tc.TILES[p.tile][:2]
     if path == "audio":  # the layers the CUDA-core kernel starved: 16 and 144 blocks, no split
         assert plans[5].split == tc.MAX_SPLIT and plans[5].blocks >= 128
@@ -183,20 +199,28 @@ def test_every_layer_of_both_trunks_fills_the_card(path, dtype):
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
 def test_dense_head_splits_over_one_cluster(dtype):
-    p = tc.plan_gemm(128, 1024, 4096, 4096, dtype, SMS)
-    assert (p.bm, p.bn, p.split, p.blocks, p.vec) == (128, 64, 8, 128, True)
+    """The head's 16 column tiles on an H100: 15 clusters of 8 fit at once,
+    17 of 6, so each tile splits K over a cluster of 6."""
+    p = tc.plan_dense(128, 1024, 4096, dtype, h100_clusters(dtype, 128))
+    assert (p.nx, p.n_tiles, p.m_tiles, p.split, p.blocks) == (128, 16, 1, 6, 96)
+    assert p.per == -(-p.slices // 6)
 
 
 @pytest.mark.parametrize("shape", [(100, 200, 300), (100, 200, 3000), (100, 200, 301), (1, 1, 1),
                                    (37 * 196, 64, 45), (5, 512, 25600)])
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
 def test_ragged_shapes_get_a_plan(shape, dtype):
+    """``dense_tma``'s grid at ragged shapes: every output row and column
+    in a block, every K slice in one block of the split, none empty."""
     m, n, k = shape
-    p = tc.plan_gemm(m, n, k, k, dtype, SMS)
-    assert p.blocks == -(-m // p.bm) * -(-n // p.bn) * p.split
+    p = tc.plan_dense(m, n, k, dtype, h100_clusters(dtype, tc.dense_rows(m)))
+    assert p.blocks == p.m_tiles * p.n_tiles * p.split
+    assert p.m_tiles * p.nx >= m > (p.m_tiles - 1) * p.nx and p.nx in tc.DENSE_NX
+    assert p.n_tiles * tc.DENSE_WROWS >= n > (p.n_tiles - 1) * tc.DENSE_WROWS
     assert p.slices == -(-k // tc.slice_depth(dtype))
-    assert p.vec == (k % tc.slice_depth(dtype) == 0)
-    assert 1 <= p.split <= min(tc.MAX_SPLIT, max(1, p.slices // tc.MIN_SPLIT_SLICES))
+    assert 1 <= p.split <= min(tc.MAX_SPLIT, max(1, p.slices // 2))
+    owned = [s for lo, hi in p.slice_ranges() for s in range(lo, hi)]
+    assert owned == list(range(p.slices)) and all(hi > lo for lo, hi in p.slice_ranges())
 
 
 def test_plan_adapts_to_the_sm_count():
@@ -212,5 +236,63 @@ def test_float32_layers_take_only_tiles_that_promote_their_sums(path, batch):
     a promoted sum: it never takes the tile without registers for one."""
     cfg, hw, c = (mnist_bigan_config(), 28, 5) if path == "mnist" else (audio_mnist_bigan_config(), 128, 7)
     shapes = _trunk_shapes(cfg, c)
-    for p in trunk_launch_plan((batch, hw, hw, c), shapes, plan_conv_ops(cfg.enc_plan), F32, SMS):
+    plans = trunk_launch_plan((batch, hw, hw, c), shapes, plan_conv_ops(cfg.enc_plan), F32, SMS)
+    assert isinstance(plans[0], tc.WindowPlan)  # promotes every slice: no tile to choose
+    for p in plans[1:]:
         assert p.tile not in tc.UNPROMOTED_TILES, p
+
+
+def test_conv_wgmma_refuses_channels_off_the_slice_depth():
+    """Only ``conv_window`` takes a layer whose input channels are no
+    multiple of the slice depth; a trunk plans it so."""
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tc.plan_gemm(100, 64, 45, 5, F32, SMS)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tc.plan_gemm(100, 64, 800, 32, BF16, SMS)
+    assert tc.plan_gemm(100, 64, 800, 32, F32, SMS).slices == 25
+
+
+def test_window_plan_refuses_weights_past_shared_memory():
+    """A layer whose packed weights and windows exceed a block's shared
+    memory gets no ``conv_window`` tiling; a trunk pads its input channels
+    to the slice depth and runs it on ``conv_wgmma``."""
+    with pytest.raises(ValueError, match="no conv_window tiling"):
+        tc.plan_window(2, 64, 64, 20, 5, 2, 1, F32)
+    assert tc.fit_window(2, 64, 64, 20, 5, 2, 1, F32) is None
+    assert tc.plan_window(2, 64, 64, 20, 5, 2, 1, BF16).smem <= tc.WINDOW_SMEM
+    plans = trunk_launch_plan((2, 64, 64, 20), [(64, 20, 5, 5)], ((2, 1, 0.2),), F32, SMS)
+    assert isinstance(plans[0], tc.GemmPlan) and plans[0].cin == 32 and plans[0].slices == 25
+
+
+_NARROW = {"audio": ((128, 128, 128, 7), audio_mnist_bigan_config),
+           "whale": ((32, 256, 256, 2), whale_bigan_config),
+           "esrf": ((16, 512, 512, 3), esrf_bigan_config)}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [8, 16, 48, 64])
+@pytest.mark.parametrize("trunk", sorted(_NARROW))
+def test_every_channel_multiplier_gets_a_kernel_route(trunk, d, dtype):
+    """The trunks the CLIs' ``--d`` builds (their VAEs share them) at their
+    full batch: every layer gets a hand-written route. A layer with input
+    channels off the slice depth runs ``conv_window`` where its block fits,
+    else ``conv_wgmma`` with its channels padded to the next multiple; at
+    the default ``d = 64`` only the first layer is off the depth."""
+    in_shape, config = _NARROW[trunk]
+    cfg = config(d=d)
+    shapes = _trunk_shapes(cfg, in_shape[-1])
+    plans = trunk_launch_plan(in_shape, shapes, plan_conv_ops(cfg.enc_plan), dtype, SMS)
+    bk = tc.slice_depth(dtype)
+    assert len(plans) == len(shapes)
+    b, h, w, _ = in_shape
+    for (co, ci, k, _), p in zip(shapes, plans):
+        window = tc.fit_window(b, h, w, ci, k, 2, 1, dtype)
+        if isinstance(p, tc.WindowPlan):
+            assert ci % bk and p == window and p.smem <= tc.WINDOW_SMEM
+        else:
+            assert p.cin % bk == 0 and ci <= p.cin < ci + bk and p.slices == k * k * p.cin // bk
+            assert p.cin == ci or window is None
+        h, w = (h + 2 - k) // 2 + 1, (w + 2 - k) // 2 + 1
+    if d == 64:
+        assert isinstance(plans[0], tc.WindowPlan)
+        assert all(isinstance(p, tc.GemmPlan) and p.cin == ci for p, (_, ci, _, _) in zip(plans[1:], shapes[1:]))
