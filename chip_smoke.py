@@ -130,10 +130,11 @@ C4. checks: every artifact loads back, every PNG decodes to its size, the
 and for the paper's Morpho-MNIST comparison, the same way, on C1-C4's
 artifacts:
 
-M1. synthesis: ``create_train_dataset --synthetic 256 --scale 16`` and
-    ``create_test_dataset --synthetic 256`` with ``--workers`` at the host's
-    core count, and the test split once more with ``--noise-std 8`` into a
-    second directory: shapes and the 13-column layout, no glyph whose
+M1. synthesis: ``create_train_dataset --synthetic 128 --scale 16`` and
+    ``create_test_dataset --synthetic 256`` with ``--workers`` one below the
+    host's core count, and the test split once more with ``--noise-std 8``
+    into a second directory, in a background process started before R (host
+    work only, beside R and C1-C4, whose host thread keeps a core): shapes and the 13-column layout, no glyph whose
     maximum is 50 or less, the attribute columns equal to the port's
     ``GroundTruthSCM`` draws for the seed, the noisy split's attributes
     unchanged and its pixels not; glyphs/s and the core count;
@@ -333,6 +334,15 @@ D3. ``train_mnist_image_scm`` for one epoch on C1's rows under ``python -m
     algorithms (a two-line driver runs the CLI module as ``__main__``): the
     two checkpoints equal bit for bit.
 
+and last, the quality battery:
+
+Q.  ``imagecfgen_torch/tools/quality_battery.py`` through its ``main`` on
+    M1's data (no synthesis) at one epoch, every other budget at 1: every
+    stage runs and has its record entry (command line, seconds, launches,
+    what it printed), the record holds every score that ``compare`` reads
+    and the card's line, and ``fused_encoder`` launched once a step in the
+    BiGAN stage and at least once in every score stage that encodes.
+
 The ``kernels`` line lists every kernel row (``launches``: the count of the
 row's own path, read around it alone: the serving path's, the explainer
 CLIs' for ``fused_encoder:b1`` at (1, 28, 28, 5), ``audiomnist_cf_eval``'s
@@ -342,7 +352,7 @@ bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``, the marine
 CLIs' for ``fused_encoder:whale``, ``fused_encoder:whale_vae``,
 ``fused_encoder:esrf`` and ``fused_dense:narw``, and D1's two ranks' for
 ``fused_encoder:dp_rank``; ``train_launches`` over ``train_steps``: the training path's;
-``cli_launches``: each CLI run's at the row's shape, R, C, M, X, F and AU phases;
+``cli_launches``: each CLI run's at the row's shape, R, C, M, X, F, AU and Q phases;
 the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
 CLIs' at every batch); the last line of output
 is ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -1619,7 +1629,24 @@ def cli_phases(args, dev, card, tmp: str):
 # a CPU rehearsal the 256 glyphs of that split read 0.0869, 0.0 and 0.00182
 # (the oracle's own error: perturbation, downscaling and re-measurement).
 ORACLE_BOUNDS = {"thickness": 0.2, "intensity": 0.01, "slant": 0.01}
-M_TRAIN, M_TEST = 256, 256  # glyphs synthesised by M1 (at --scale 16, as the reference)
+M_TRAIN, M_TEST = 128, 256  # glyphs synthesised by M1 (at --scale 16, as the reference)
+# M1's CLIs in a child process: each through its ``main`` with both kernels'
+# launch counts, as run_cli does, then one line of their seconds and counts.
+SYNTHESIS_CHILD = """
+import importlib, json, sys, time
+from imagecfgen_torch.ops.fused_dense import fused_dense_lrelu
+from imagecfgen_torch.ops.fused_encoder import fused_encoder_forward
+runs = {}
+for label, name, argv in json.loads(sys.argv[1]):
+    main = importlib.import_module(f"imagecfgen_torch.cli.{name}").main
+    fused_encoder_forward.launches = fused_dense_lrelu.launches = 0
+    t0 = time.perf_counter()
+    code = main([str(v) for v in argv])
+    runs[label] = {"seconds": time.perf_counter() - t0, "code": code, "launches": {
+        "fused_encoder": fused_encoder_forward.launches, "fused_dense": fused_dense_lrelu.launches}}
+    print(f"{label}: {runs[label]['seconds']:.2f} s", flush=True)
+print("M1 runs " + json.dumps(runs), flush=True)
+"""
 PANEL = 96  # the measured-CF panels' size (cli/common.py::scatter_panel)
 
 
@@ -1634,10 +1661,27 @@ def printed_errors(text: str, attributes) -> dict:
     return errors
 
 
-def morpho_phases(args, dev, card, peak, tmp: str):
+def start_synthesis(args, tmp: str) -> subprocess.Popen:
+    """M1's three synthesis CLIs in a background process, writing under
+    ``tmp`` (``morpho``, ``morpho-noisy``) and its output to
+    ``tmp/synthesis.log``; :func:`morpho_phases` waits for it."""
+    workers = max(1, (os.cpu_count() or 1) - 1)
+    mdata, noisy = os.path.join(tmp, "morpho"), os.path.join(tmp, "morpho-noisy")
+    test = ["--synthetic", M_TEST, "--workers", workers, "--seed", args.seed + 51]
+    runs = [("create_train_dataset", "create_train_dataset", ["--synthetic", M_TRAIN, "--scale", 16, "--workers",
+                                                              workers, "--seed", args.seed + 50, "--out-dir", mdata]),
+            ("create_test_dataset", "create_test_dataset", [*test, "--out-dir", mdata]),
+            ("create_test_dataset --noise-std 8", "create_test_dataset", [*test, "--noise-std", 8, "--out-dir", noisy])]
+    with open(os.path.join(tmp, "synthesis.log"), "w") as log:
+        return subprocess.Popen([sys.executable, "-c", SYNTHESIS_CHILD, json.dumps(runs)], stdout=log,
+                                stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def morpho_phases(args, dev, card, peak, tmp: str, synthesis: subprocess.Popen = None):
     """Phases M1-M5: the paper's Morpho-MNIST comparison through the port's
-    CLIs, after C1-C4 and on their artifacts in ``tmp``. Returns ({kernel:
-    {CLI run: launches}}, lines)."""
+    CLIs, after C1-C4 and on their artifacts in ``tmp``; M1 waits for
+    ``synthesis`` (:func:`start_synthesis`; started here when None).
+    Returns ({kernel: {CLI run: launches}}, lines)."""
     from imagecfgen_torch.cli.common import load_mnist_training_data, load_vae, read_png, scale_attrs
     from imagecfgen_torch.data.morphomnist_synth import GroundTruthSCM
     from imagecfgen_torch.metrics.measured import measure_attributes
@@ -1653,12 +1697,19 @@ def morpho_phases(args, dev, card, peak, tmp: str):
     seeds = {"train": args.seed + 50, "test": args.seed + 51}
 
     # ------------------------------------------------- M1. synthesis
-    cli("create_train_dataset", "create_train_dataset", "--synthetic", M_TRAIN, "--scale", 16,
-        "--workers", cores, "--seed", seeds["train"], "--out-dir", mdata, device_flag=False)
-    cli("create_test_dataset", "create_test_dataset", "--synthetic", M_TEST, "--workers", cores,
-        "--seed", seeds["test"], "--out-dir", mdata, device_flag=False)
-    cli("create_test_dataset --noise-std 8", "create_test_dataset", "--synthetic", M_TEST,
-        "--workers", cores, "--seed", seeds["test"], "--noise-std", 8, "--out-dir", noisy, device_flag=False)
+    t0 = time.perf_counter()
+    code = (synthesis or start_synthesis(args, tmp)).wait()
+    with open(os.path.join(tmp, "synthesis.log")) as log:
+        text = log.read()
+    print("".join(f"  synthesis| {line}\n" for line in text.splitlines()), end="")
+    check(code == 0, f"M1: the synthesis process exited with {code}")
+    runs = json.loads(re.search(r"^M1 runs (.*)$", text, re.M).group(1))
+    for label, run in runs.items():
+        check(run["code"] == 0, f"M1: {label} exited with {run['code']}")
+        secs[label] = run["seconds"]
+        for k, n in run["launches"].items():
+            launches[k][label] = n
+    print(f"M1: waited {time.perf_counter() - t0:.2f} s for the synthesis started before R")
     split = {}
     for name, n in (("train", M_TRAIN), ("test", M_TEST)):
         x = np.load(os.path.join(mdata, f"mnist-x-{name}.npy"))
@@ -1674,7 +1725,7 @@ def morpho_phases(args, dev, card, peak, tmp: str):
     check(np.array_equal(an, split["test"][1]), "M1: --noise-std changed the attributes")
     check(not np.array_equal(xn, split["test"][0]) and xn.min() >= 0 and xn.max() <= 255,
           "M1: --noise-std left the pixels as they were, or outside [0, 255]")
-    synth = {"cpu_count": cores, "glyphs_per_s": {
+    synth = {"cpu_count": cores, "workers": max(1, cores - 1), "glyphs_per_s": {
         label: n / secs[label] for label, n in (("create_train_dataset", M_TRAIN), ("create_test_dataset", M_TEST),
                                                 ("create_test_dataset --noise-std 8", M_TEST))}}
     print(f"M1 synthesis: {synth}")
@@ -3409,6 +3460,50 @@ def parallel_phases(args, dev, card, peak, tmp: str):
     return lines, dp_row
 
 
+def quality_phase(args, dev, card, tmp: str):
+    """Phase Q: the quality battery (``tools/quality_battery.py``) on M1's data (``tmp/morpho``)
+    at one epoch. Returns ({kernel: {stage: launches}}, lines)."""
+    import io
+
+    from imagecfgen_torch.tools import quality_battery as qb
+
+    mdata = os.path.join(tmp, "morpho")
+    argv = [mdata, "--epochs", 1, "--train-glyphs", M_TRAIN, "--test-glyphs", M_TEST, "--finetune-steps", 1,
+            "--scm-steps", 1, "--clf-epochs", 1, "--vae-steps", 1, "--device", dev.type]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = qb.main([str(v) for v in argv])
+    secs = time.perf_counter() - t0
+    print("".join(f"  quality_battery| {line}\n" for line in out.getvalue().splitlines()
+                  if line.startswith(("===", "{"))), end="")
+    check(code == 0, f"Q: quality_battery exited with {code}")
+    record = qb.load_record(os.path.join(mdata, qb.RECORD))
+    names = [s.name for s in qb.stages(qb.parser.parse_args([str(v) for v in argv]))]
+    check(list(record["stages"]) == names, f"Q: the record's stages {list(record['stages'])}")
+    ran = {k: v for k, v in record["stages"].items() if "skipped" not in v}
+    check(set(names) - set(ran) == {"train_data", "test_data"}, f"Q: stages not run {set(names) - set(ran)}")
+    for name, entry in ran.items():
+        check({"cli", "argv", "seconds", "launches", "printed"} <= set(entry), f"Q: {name}'s entry {sorted(entry)}")
+    missing = [k for k, v in record["scores"].items() if v is None]
+    check(not missing and set(record["scores"]) >= set(qb.JAX_HARD), f"Q: scores missing {missing}")
+    check(record["card"] == card, f"Q: the record's card {record['card']!r}")
+    launches = {k: {f"Q {n}": e["launches"][k] for n, e in ran.items()} for k in ("fused_encoder", "fused_dense")}
+    steps = ran["bigan"]["printed"]["epochs"][0]
+    check(launches["fused_encoder"]["Q bigan"] == M_TRAIN // 64,
+          f"Q: {launches['fused_encoder']['Q bigan']} fused_encoder launches in the BiGAN's {M_TRAIN // 64} steps")
+    for name in qb.ENCODING_SCORES:
+        check(launches["fused_encoder"][f"Q {name}"] > 0, f"Q: {name} did not reach the fused_encoder kernel")
+    result = qb.compare(record)
+    line = {"quality": "Q: quality_battery on M1's data, 1 epoch", "seconds": secs,
+            "stage_seconds": {n: e["seconds"] for n, e in ran.items()}, "launches": launches,
+            "bigan_epoch": steps, "scores": record["scores"], "bands_missed_at_one_epoch": len(result["missed"]),
+            "card": card}
+    print(f"Q quality_battery: {secs:.2f} s; fused_encoder launches "
+          f"{ {n: launches['fused_encoder'][f'Q {n}'] for n in ('bigan', *qb.ENCODING_SCORES)} }")
+    return launches, [line]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3573,12 +3668,17 @@ def main(argv=None) -> int:
 
     # ------- C1-C4, M1-M5, X1-X3. the MNIST CLIs, the comparison, the explainers
     with tempfile.TemporaryDirectory() as tmp:
-        stamp("R")
-        r_launches, r_lines = reference_phase(args, dev, card, tmp)
-        stamp("C1-C4")
-        cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
+        synthesis = start_synthesis(args, tmp)
+        try:
+            stamp("R")
+            r_launches, r_lines = reference_phase(args, dev, card, tmp)
+            stamp("C1-C4")
+            cli_launches, cli_lines = cli_phases(args, dev, card, tmp)
+        except BaseException:
+            synthesis.kill()
+            raise
         stamp("M1-M5")
-        m_launches, m_lines = morpho_phases(args, dev, card, peak, tmp)
+        m_launches, m_lines = morpho_phases(args, dev, card, peak, tmp, synthesis)
         stamp("X1-X3")
         x_launches, x_lines, b1_row = explainer_phases(args, dev, card, peak, tmp)
         stamp("F1")
@@ -3594,11 +3694,13 @@ def main(argv=None) -> int:
         w_launches, w_lines, marine_rows = marine_phases(args, dev, card, peak, tmp)
         stamp("D1-D3")
         d_lines, dp_row = parallel_phases(args, dev, card, peak, tmp)
+        stamp("Q")
+        q_launches, q_lines = quality_phase(args, dev, card, tmp)
         stamp("the end")
-    for more in (r_launches, m_launches, x_launches, f_launches):
+    for more in (r_launches, m_launches, x_launches, f_launches, q_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += r_lines + m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines
+    cli_lines += r_lines + m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines + q_lines
     for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)

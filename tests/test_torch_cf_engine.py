@@ -70,6 +70,11 @@ INTERVENTIONS = {
     "digit": lambda raw: {"digit": (raw["digit"].argmax(1) + 4) % 10},
     "thickness+digit": lambda raw: {"thickness": (raw["thickness"] + 1).reshape(-1, 1),
                                     "digit": np.full(B, 7)},
+    # the hard battery's compound held-out intervention (--held-out-shift 1.5 32 0.4)
+    "compound": lambda raw: {"digit": (raw["digit"].argmax(1) + 4) % 10,
+                             "thickness": (raw["thickness"] + 1.5).reshape(-1, 1),
+                             "intensity": (raw["intensity"] + 32).reshape(-1, 1),
+                             "slant": (raw["slant"] + 0.4).reshape(-1, 1)},
 }
 
 

@@ -324,3 +324,20 @@ def test_last_slice_entry_points_raise_when_no_gpu(monkeypatch, entry, tmp_path)
         else:
             mnist_mix_vae_gui.main(["--headless", "--data-dir", str(tmp_path), "--model-dir", str(tmp_path)])
     assert not (tmp_path / "out.tar").exists()
+
+
+def test_sources_cover_the_quality_battery():
+    """Pin that the glob reaches the quality battery."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert "imagecfgen_torch/tools/quality_battery.py" in names
+
+
+def test_quality_battery_raises_when_no_gpu_before_any_stage(monkeypatch, tmp_path):
+    """The battery asks for the card before its first stage (minutes of
+    synthesis would come first otherwise) and writes nothing."""
+    from imagecfgen_torch.tools import quality_battery
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality_battery.main([str(tmp_path / "D"), "--hard"])
+    assert not (tmp_path / "D").exists()
