@@ -342,6 +342,14 @@ Q.  ``imagecfgen_torch/tools/quality_battery.py`` through its ``main`` on
     what it printed), the record holds every score that ``compare`` reads
     and the card's line, and ``fused_encoder`` launched once a step in the
     BiGAN stage and at least once in every score stage that encodes.
+QA. ``imagecfgen_torch/tools/audio_battery.py`` through its ``main`` on AU's
+    stand-in (``shared_stand_in``) cut to its first 5 subjects, in bf16 at
+    one epoch, cut in depth only (SCM steps, classifier epochs, ``--gen-n``;
+    the VAE one epoch, the subject classifier one): all eleven stages run
+    and have their record entries, every score and the card's line are in
+    the record, ``fused_encoder`` launched once a step in the bf16 BiGAN
+    stage and at least once in every stage that encodes, ``fused_dense`` at
+    least once in every stage that classifies.
 
 The ``kernels`` line lists every kernel row (``launches``: the count of the
 row's own path, read around it alone: the serving path's, the explainer
@@ -352,7 +360,7 @@ bf16, and ``audiomnist_vae_score``'s for ``fused_encoder:audio_vae``, the marine
 CLIs' for ``fused_encoder:whale``, ``fused_encoder:whale_vae``,
 ``fused_encoder:esrf`` and ``fused_dense:narw``, and D1's two ranks' for
 ``fused_encoder:dp_rank``; ``train_launches`` over ``train_steps``: the training path's;
-``cli_launches``: each CLI run's at the row's shape, R, C, M, X, F, AU and Q phases;
+``cli_launches``: each CLI run's at the row's shape, R, C, M, X, F, AU, Q and QA phases;
 the ``fused_encoder:audio_mnist`` and ``fused_dense`` rows' hold the audio
 CLIs' at every batch); the last line of output
 is ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -2025,26 +2033,36 @@ AU_D, AU_WIDTH, AU_RUNS, AU_BATCH = 64, 1.0, 4, 128
 AU_GL_CLIPS = 8  # clips of AU1's Griffin-Lim round trip
 
 
+STAND_INS: dict = {}  # (synthetic_runs, subjects) -> the stand-in, made once a process (AU and QA share it)
+
+
 @contextlib.contextmanager
-def shared_stand_in():
+def shared_stand_in(subjects: int | None = None):
     """Inside, ``cli.audio_common.load_audio_dataset`` hands every call
     without a zip a copy of one synthesis of the AudioMNIST stand-in, made at
     the first call: the data is set-up, made once (AU1 times a synthesis of
-    its own), not the CLIs' work; a zip that exists is read as before."""
+    its own), not the CLIs' work; a zip that exists is read as before.
+    ``subjects``: the copy cut to subjects 1..``subjects``."""
     import copy
 
     from imagecfgen_torch.cli import audio_common
 
-    real, made = audio_common.load_audio_dataset, {}
+    real, made = audio_common.load_audio_dataset, STAND_INS
 
     def load(zip_path, synthetic_runs: int = 4):
         if zip_path and os.path.exists(zip_path):
             return real(zip_path, synthetic_runs)
         if zip_path:
             print(f"warning: {zip_path} not found; using the synthetic AudioMNIST stand-in")
-        if synthetic_runs not in made:
-            made[synthetic_runs] = real(None, synthetic_runs)
-        return copy.deepcopy(made[synthetic_runs])
+        if (synthetic_runs, None) not in made:
+            made[synthetic_runs, None] = real(None, synthetic_runs)
+        if (synthetic_runs, subjects) not in made:
+            data = copy.deepcopy(made[synthetic_runs, None])
+            keep = data.raw["subject"] <= subjects
+            data.raw = {k: v[keep] for k, v in data.raw.items()}
+            data._fit_encoders()
+            made[synthetic_runs, subjects] = data
+        return copy.deepcopy(made[synthetic_runs, subjects])
 
     audio_common.load_audio_dataset = load
     try:
@@ -3504,6 +3522,69 @@ def quality_phase(args, dev, card, tmp: str):
     return launches, [line]
 
 
+# QA's budgets, cut in depth (the digit classifier's val_acc is printed every fifth epoch), on AU's
+# stand-in cut to its first QA_SUBJECTS subjects: 200 clips, 150 to train (one step an epoch at batch
+# 128), 50 to validate (the whole stand-in read 37.8-42.7 s of QA, 10 subjects 28.4 s, over the 20 s)
+QA_SCM_STEPS, QA_CLF_EPOCHS, QA_GEN_N, QA_SUBJECTS = 20, 5, 128, 5
+
+
+def quality_audio_phase(args, dev, card, tmp: str):
+    """Phase QA: the AudioMNIST battery (``tools/audio_battery.py``) through its ``main`` on AU's
+    stand-in cut to ``QA_SUBJECTS`` subjects, in bf16 at one epoch, every stage and the identity
+    stages at their smallest. Returns ({kernel: {stage: launches}}, lines)."""
+    import io
+
+    from imagecfgen_torch.tools import audio_battery as ab
+    from imagecfgen_torch.tools import quality_battery as qb
+
+    out_dir = os.path.join(tmp, "audio-battery")
+    argv = [str(v) for v in (out_dir, "--dtype", "bfloat16", "--init-std", 0.01, "--epochs", 1, "--vae-epochs", 1,
+                             "--scm-steps", QA_SCM_STEPS, "--clf-epochs", QA_CLF_EPOCHS, "--subject-clf-epochs", 1,
+                             "--gen-n", QA_GEN_N, "--device", dev.type)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with shared_stand_in(QA_SUBJECTS), contextlib.redirect_stdout(out):
+        code = ab.main(argv)
+    secs = time.perf_counter() - t0
+    print("".join(f"  audio_battery| {line}\n" for line in out.getvalue().splitlines()
+                  if line.startswith(("===", "{"))), end="")
+    check(code == 0, f"QA: audio_battery exited with {code}")
+    record = qb.load_record(os.path.join(out_dir, qb.RECORD))
+    names = [s.name for s in ab.stages(ab.parser.parse_args(argv))]
+    check(list(record["stages"]) == names and len(names) == 11, f"QA: the record's stages {list(record['stages'])}")
+    for name, entry in record["stages"].items():
+        check({"cli", "argv", "seconds", "launches", "printed", "run"} <= set(entry) and "skipped" not in entry,
+              f"QA: {name}'s entry {sorted(entry)}")
+    scores = record["scores"]
+    missing = [k for k, v in scores.items() if v is None and k != "windows"]
+    check(not missing, f"QA: scores missing {missing}")
+    check(set(scores["subject_identity"]) == {"bigan", "vae", "bigan_int"}
+          and set(scores["mean_ratio"]) == {"bigan", "vae", "bigan_int", "vae_int"}, "QA: the identity scores")
+    check(record["card"] == card and record["dtype"] == "bfloat16", f"QA: the record's card {record['card']!r}")
+    epochs = record["stages"]["bigan"]["printed"]["epochs"]
+    check(len(epochs) == 1 and all(np.isfinite(epochs[0][1:3])), f"QA: the BiGAN's epoch {epochs}")
+    with open(os.path.join(out_dir, "bigan.log")) as f:
+        steps = int(re.findall(r"step (\d+)\)", f.read())[-1])
+    launches = {k: {f"QA {n}": e["launches"][k] for n, e in record["stages"].items()}
+                for k in ("fused_encoder", "fused_dense")}
+    check(launches["fused_encoder"]["QA bigan"] == steps,
+          f"QA: {launches['fused_encoder']['QA bigan']} fused_encoder launches in the bf16 BiGAN's {steps} steps")
+    for name in ab.ENCODING_STAGES:
+        check(launches["fused_encoder"][f"QA {name}"] > 0, f"QA: {name} did not reach the fused_encoder kernel")
+    for name in ab.CLASSIFYING_STAGES:
+        check(launches["fused_dense"][f"QA {name}"] > 0, f"QA: {name} did not reach the fused_dense kernel")
+    result = ab.compare(record)
+    line = {"quality": f"QA: audio_battery on AU's stand-in cut to {QA_SUBJECTS} subjects, bf16, 1 epoch",
+            "seconds": secs,
+            "stage_seconds": {n: e["seconds"] for n, e in record["stages"].items()}, "launches": launches,
+            "bigan_epoch": epochs[0], "bigan_steps": steps, "scores": scores,
+            "bands_missed_at_one_epoch": len(result["missed"]), "card": card}
+    print(f"QA audio_battery: {secs:.2f} s; launches fused_encoder "
+          f"{ {n: launches['fused_encoder'][f'QA {n}'] for n in ab.ENCODING_STAGES} }, fused_dense "
+          f"{ {n: launches['fused_dense'][f'QA {n}'] for n in ab.CLASSIFYING_STAGES} }")
+    return launches, [line]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3696,11 +3777,14 @@ def main(argv=None) -> int:
         d_lines, dp_row = parallel_phases(args, dev, card, peak, tmp)
         stamp("Q")
         q_launches, q_lines = quality_phase(args, dev, card, tmp)
+        stamp("QA")
+        qa_launches, qa_lines = quality_audio_phase(args, dev, card, tmp)
         stamp("the end")
     for more in (r_launches, m_launches, x_launches, f_launches, q_launches):
         for k, runs in more.items():
             cli_launches[k].update(runs)
-    cli_lines += r_lines + m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines + q_lines
+    cli_lines += (r_lines + m_lines + x_lines + au_lines + f_lines + av_lines + p_lines + w_lines + d_lines + q_lines
+                  + qa_lines)
     for kernel in kernels:  # the MNIST CLIs run float32 MNIST models: the f32 MNIST rows
         kernel["cli_launches"] = (cli_launches[kernel["name"]] if kernel["name"] in cli_launches
                                   and kernel["dtype"] == "f32" else None)
@@ -3709,7 +3793,7 @@ def main(argv=None) -> int:
                                       if "bf16" not in r and "bfloat16" not in r}
         elif kernel["name"] == "fused_dense":  # the audio classifier's head in every audio CLI
             kernel["cli_launches"] = {**kernel["cli_launches"], **au_launches["fused_dense"],
-                                      **av_launches["fused_dense"]}
+                                      **av_launches["fused_dense"], **qa_launches["fused_dense"]}
     check(sum(cli_launches["fused_encoder"].values()) > 0, "the CLIs did not reach the fused_encoder kernel")
     check(b1_row["launches"] > 0 and all(n > 0 for n in b1_row["cli_launches"].values()),
           "an explainer CLI did not reach the fused_encoder kernel")

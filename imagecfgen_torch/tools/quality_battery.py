@@ -432,46 +432,44 @@ def write_record(path: str, record: Dict) -> None:
     os.replace(tmp, path)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = parser.parse_args(argv)
-    if args.report:
-        records = [load_record(p) for p in args.report]
-        for p, rec in zip(args.report, records):
-            print(json.dumps({"record": p, "scores": rec["scores"], "compare": compare(rec),
-                              **({"deltas": deltas(rec, records[0])} if rec.get("fused") else {})}))
-        return 0
+def report(paths: Sequence[str], line: Callable[[str, Dict, List[Dict]], Dict]) -> int:
+    """``--report``: run nothing, print ``line(path, record, records)`` of
+    each record as one JSON line."""
+    records = [load_record(p) for p in paths]
+    for p, rec in zip(paths, records):
+        print(json.dumps(line(p, rec, records)))
+    return 0
+
+
+def run_battery(args, argv: Optional[Sequence[str]], all_stages: List[Stage], path: str, header: Dict,
+                own_files: Callable[[], List[str]], scores: Callable[[Dict], Dict],
+                error: Callable[[str], None]) -> Dict:
+    """Run ``all_stages`` in order (``args.stages``, ``args.resume``,
+    ``args.device``; see the module's docstring) in the directory of
+    ``path`` and write the record there after each stage: ``header``, the
+    card, the runs (each with its ``argv``), every stage's entry and
+    ``scores(entries)``. A fresh
+    run first removes ``own_files()`` and keeps only the data stages'
+    entries. Returns the record."""
     import torch
 
-    from ..device import resolve_device
-
-    resolve_device(args.device)  # before minutes of synthesis: the card, unless the CPU is asked for
-    d, a = data_dir(args), arm_dir(args)
-    os.makedirs(d, exist_ok=True)
-    os.makedirs(a, exist_ok=True)
-    all_stages = stages(args)
     names = [s.name for s in all_stages]
     wanted = set(names if args.stages is None else args.stages.split(","))
     if wanted - set(names):
-        parser.error(f"unknown stages {sorted(wanted - set(names))}; the stages are {names}")
-
-    path = os.path.join(a, RECORD)
+        error(f"unknown stages {sorted(wanted - set(names))}; the stages are {names}")
     old = load_record(path) or {"stages": {}}
     if args.resume:
         entries = dict(old["stages"])
     else:  # a fresh run: no stale model is scored; the data (kept) keep their entries
-        for f in own_model_files(args):
+        for f in own_files():
             os.remove(f)
         runs = old.get("runs", [])
+        data = {s.name for s in all_stages if s.kind == "data"}
         entries = {k: dict(v, run=runs[v["run"]] if isinstance(v.get("run"), int) else v.get("run"))
-                   for k, v in old["stages"].items() if k in ("train_data", "test_data")}
+                   for k, v in old["stages"].items() if k in data}
     card = card_line()
     record = {
-        "battery": "mnist", "hard": args.hard, "fused": args.fused, "seed": args.seed, "epochs": args.epochs,
-        "glyphs": {"train": args.train_glyphs, "test": args.test_glyphs},
-        "budgets": {k: getattr(args, k) for k in BUDGETS},
-        "shifts": {"noise_std": args.noise_std, "target_shift": args.target_shift,
-                   "held_out_shift": args.held_out_shift} if args.hard else None,
-        "dirs": {"data": d, "arm": a}, "device": args.device, "torch": torch.__version__,
+        **header, "device": args.device, "torch": torch.__version__,
         "card": card, "runs": [*(old.get("runs", []) if args.resume else []), {
             "started": datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds"),
             "argv": list(argv if argv is not None else sys.argv[1:]), "card": card,
@@ -493,19 +491,44 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if skip:
             if stage.name not in entries:
                 entries[stage.name] = {"cli": stage.cli, "skipped": "artifact complete",
-                                       "shared_from": d if stage.shared else None}
+                                       "shared_from": header["dirs"]["data"] if stage.shared else None}
             print(f"=== {stage.name}: skipped (complete)", flush=True)
             continue
-        entry = run_stage(stage, args, a)
+        entry = run_stage(stage, args, os.path.dirname(path))
         entry["run"] = run_no
         entries[stage.name] = entry
         trained |= stage.kind == "train"
         bigan_trained |= stage.name == "bigan"
-        record["scores"] = scores_of(entries)
+        record["scores"] = scores(entries)
         write_record(path, record)
-    record["scores"] = scores_of(entries)
+    record["scores"] = scores(entries)
     write_record(path, record)
     print(json.dumps({"record": path, "scores": record["scores"]}))
+    return record
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parser.parse_args(argv)
+    if args.report:
+        return report(args.report, lambda p, rec, records: {
+            "record": p, "scores": rec["scores"], "compare": compare(rec),
+            **({"deltas": deltas(rec, records[0])} if rec.get("fused") else {})})
+    from ..device import resolve_device
+
+    resolve_device(args.device)  # before minutes of synthesis: the card, unless the CPU is asked for
+    d, a = data_dir(args), arm_dir(args)
+    os.makedirs(d, exist_ok=True)
+    os.makedirs(a, exist_ok=True)
+    header = {
+        "battery": "mnist", "hard": args.hard, "fused": args.fused, "seed": args.seed, "epochs": args.epochs,
+        "glyphs": {"train": args.train_glyphs, "test": args.test_glyphs},
+        "budgets": {k: getattr(args, k) for k in BUDGETS},
+        "shifts": {"noise_std": args.noise_std, "target_shift": args.target_shift,
+                   "held_out_shift": args.held_out_shift} if args.hard else None,
+        "dirs": {"data": d, "arm": a},
+    }
+    run_battery(args, argv, stages(args), os.path.join(a, RECORD), header, lambda: own_model_files(args),
+                scores_of, parser.error)
     return 0
 
 

@@ -1,0 +1,416 @@
+"""The port's AudioMNIST quality battery (``imagecfgen_torch/tools/audio_battery.py``):
+its stages are ``tools/audio_battery.sh``'s command lines for each setting of
+the script's knobs, a tiny run on the CPU writes a complete record, a seed
+arm shares the default arm's models, ``compare`` holds a record to the bands
+of its arm, and the committed records ran the committed driver's command
+lines. Also the early-game statistic of the MNIST battery's records (the mean
+D(G(z)) of the BiGAN's epochs 7-10) against the decision rule fixed before
+their runs."""
+import copy
+import json
+import os
+import re
+import shlex
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from imagecfgen_torch.cli import audio_common
+from imagecfgen_torch.data.audio_mnist import AudioMNISTData
+from imagecfgen_torch.tools import audio_battery as ab
+from imagecfgen_torch.tools import quality_battery as qb
+
+REPO = Path(__file__).resolve().parents[1]
+RECORDS = REPO / "imagecfgen_torch" / "tools" / "battery_records"
+SUBJECTS = 2  # the tiny run's stand-in: 2 subjects x 10 digits x 2 runs, one of them for validation
+TINY = ["--device", "cpu", "--epochs", "1", "--vae-epochs", "1", "--scm-steps", "2", "--clf-epochs", "5",
+        "--subject-clf-epochs", "1", "--gen-n", "16", "--d", "2", "--width", "0.0625", "--batch-size", "20"]
+
+
+# ------------------------------------------------- the shell script's lines
+
+
+def shell_commands(env):
+    """The shell script's python command lines as (script, argv) under the
+    knobs in ``env`` (EPOCHS, VAE_EPOCHS, INIT_STD, DTYPE, VAE, IDENTITY and
+    ZIP, the script's second argument), ``$D`` left as ``DIR``: its arrays
+    and defaults expanded and its ``if`` blocks followed."""
+    text = (REPO / "tools" / "audio_battery.sh").read_text().replace("\\\n", " ")
+    values = {"D": "DIR", "ZIP": env.get("ZIP", "")}
+    for name, default in re.findall(r"^(\w+)=\$\{\1:-([^}]*)\}$", text, re.M):
+        values[name] = env.get(name, default)
+    arrays, active, out = {}, [], []
+
+    def expand(tok):
+        return re.sub(r"\$\{?(\w+)\}?", lambda m: values.get(m.group(1), env.get(m.group(1), "")), tok)
+
+    for line in text.splitlines():
+        line = line.strip()
+        m = re.fullmatch(r'\[ -n "\$\{?(\w+)(?::-)?\}?" \] && (\w+)=\((.*)\)', line)
+        if m:
+            if values.get(m.group(1)) or env.get(m.group(1)):
+                arrays[m.group(2)] = [expand(t) for t in shlex.split(m.group(3))]
+            continue
+        m = re.fullmatch(r'if \[ "\$\{(\w+):-(\w*)\}" (=|!=) "(\w*)" \]; then', line)
+        if m:
+            value = env.get(m.group(1), m.group(2))
+            active.append((value == m.group(4)) == (m.group(3) == "="))
+            continue
+        if line == "else":
+            active[-1] = not active[-1]
+            continue
+        if line == "fi":
+            active.pop()
+            continue
+        if not all(active):
+            continue
+        if line == "exit 0":
+            break
+        m = re.search(r"\bpython (?:-u )?(\w+)\.py (.*)$", line)
+        if m:
+            argv = []
+            for tok in shlex.split(m.group(2)):
+                arr = re.fullmatch(r"\$\{(\w+)\[@\]\}", tok)
+                argv += arrays.get(arr.group(1), []) if arr else [expand(tok)]
+            out.append((m.group(1), argv))
+    return out
+
+
+def knob_flags(env):
+    flags = [*(["--epochs", env["EPOCHS"]] if "EPOCHS" in env else []),
+             *(["--vae-epochs", env["VAE_EPOCHS"]] if "VAE_EPOCHS" in env else []),
+             *(["--init-std", env["INIT_STD"]] if "INIT_STD" in env else []),
+             *(["--dtype", env["DTYPE"]] if "DTYPE" in env else []),
+             *(["--no-vae"] if env.get("VAE") == "0" else []),
+             *(["--no-identity"] if env.get("IDENTITY") == "0" else []),
+             *(["--zip-path", env["ZIP"]] if "ZIP" in env else [])]
+    return flags
+
+
+def port_commands(env, tmp_path):
+    args = ab.parser.parse_args([str(tmp_path / "D"), *knob_flags(env)])
+    d = ab.data_dir(args)
+    return [(s.cli, [t.replace(d, "DIR") for t in s.argv]) for s in ab.stages(args)]
+
+
+KNOBS = {
+    "default": {},
+    "bf16_arm": {"DTYPE": "bfloat16", "INIT_STD": "0.01", "EPOCHS": "1200", "VAE": "0", "IDENTITY": "0"},
+    "identity_arm": {"INIT_STD": "0.01", "EPOCHS": "1200"},
+    "no_vae": {"VAE": "0"},
+    "no_identity": {"IDENTITY": "0", "VAE_EPOCHS": "40"},
+    "zip_f32": {"ZIP": "/data/AudioMNIST.zip", "DTYPE": "float32", "VAE_EPOCHS": "50"},
+}
+
+
+@pytest.mark.parametrize("knobs", list(KNOBS))
+def test_stages_are_the_shell_scripts_command_lines(knobs, tmp_path):
+    shell, port = shell_commands(KNOBS[knobs]), port_commands(KNOBS[knobs], tmp_path)
+    assert [s for s, _ in shell] == [s for s, _ in port]
+    for (script, want), (_, got) in zip(shell, port):
+        assert got == want, script
+
+
+def test_shell_reader_follows_the_scripts_blocks():
+    """Pin the reader itself: 11 stages by default, the bf16 arm's 5."""
+    assert len(shell_commands({})) == 11
+    assert [s for s, _ in shell_commands(KNOBS["bf16_arm"])] == [
+        "train_audio_mnist_bigan", "train_audio_mnist_attribute_scm", "train_audio_mnist_clf",
+        "audiomnist_bigan_score", "audiomnist_generator_score"]
+
+
+def test_seed_arm_shares_the_default_arms_models(tmp_path):
+    args = ab.parser.parse_args([str(tmp_path / "D"), "--seed", "1", "--dtype", "bfloat16"])
+    d, a = ab.data_dir(args), ab.arm_dir(args)
+    assert a == d + "_seed1"
+    by_name = {s.name: s for s in ab.stages(args)}
+    bigan = by_name["bigan"].argv
+    assert bigan[bigan.index("--output-path") + 1] == a and bigan[-2:] == ["--seed", "1"]
+    assert {n for n, s in by_name.items() if s.shared} == {"scm", "clf", "vae", "subject_clf"}
+    for n in ("scm", "clf", "vae", "subject_clf"):
+        assert by_name[n].argv[by_name[n].argv.index("--output-path") + 1] == d
+    mine = os.path.join(a, "audio-mnist-bigan.tar")
+    assert by_name["bigan_score"].argv[-2:] == ["--image-model", mine]
+    assert by_name["generator_score"].argv[-2:] == ["-m", mine]
+    assert by_name["cf_classifier_metric"].argv[-2:] == ["--bigan", mine]
+    assert by_name["cf_eval"].argv[-4:] == ["--out-dir", a, "--bigan", mine]
+
+
+def test_default_dir_follows_the_dtype():
+    assert ab.data_dir(ab.parser.parse_args([])).endswith(".battery_torch_audio")
+    assert ab.data_dir(ab.parser.parse_args(["--dtype", "bfloat16"])).endswith(".battery_torch_audio_bf16")
+
+
+# ------------------------------------------------------- a tiny run on the CPU
+
+
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory):
+    """The whole battery on the CPU at d = 2 on a cut stand-in, then a
+    --resume run of it."""
+    data = AudioMNISTData(None, 2)
+    keep = data.raw["subject"] <= SUBJECTS
+    data.raw = {k: v[keep] for k, v in data.raw.items()}
+    data._fit_encoders()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    d = str(tmp_path_factory.mktemp("audio-battery") / "D")
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(audio_common, "load_audio_dataset", lambda zip_path, synthetic_runs=4: copy.deepcopy(data))
+            assert ab.main([d, *TINY]) == 0
+            first = qb.load_record(os.path.join(d, qb.RECORD))
+            mtimes = {f: os.path.getmtime(os.path.join(d, f)) for f in os.listdir(d) if f.endswith((".tar", ".npy"))}
+            assert ab.main([d, "--resume", *TINY]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    return d, first, mtimes, qb.load_record(os.path.join(d, qb.RECORD))
+
+
+def test_tiny_run_writes_a_complete_record(tiny_run):
+    d, record, _, _ = tiny_run
+    names = [s.name for s in ab.stages(ab.parser.parse_args([d, *TINY]))]
+    assert list(record["stages"]) == names and len(names) == 11
+    for name, entry in record["stages"].items():
+        assert set(entry) >= {"cli", "argv", "seconds", "launches", "printed"}, name
+        assert entry["launches"] == {"fused_encoder": 0, "fused_dense": 0}  # the CPU runs the plain versions
+        assert entry["argv"][-2:] == ["--device", "cpu"]
+    epochs = record["stages"]["bigan"]["printed"]["epochs"]
+    assert len(epochs) == 1 and epochs[0][0] == 1 and len(epochs[0]) == 4
+    s = record["scores"]
+    for key in ("bigan_cf_digit_accuracy", "bigan_generated_accuracy", "vae_cf_digit_accuracy",
+                "vae_generated_accuracy", "scm_accent_nll", "digit_clf_val_acc"):
+        assert s[key] is not None, key
+    assert set(s["subject_identity"]) == {"bigan", "vae", "bigan_int"}
+    assert set(s["mean_ratio"]) == {"bigan", "vae", "bigan_int", "vae_int"}
+    assert all(v is None for v in s["windows"].values())  # one epoch reaches no window
+    assert record["battery"] == "audio" and record["identity"] and record["vae"]
+    result = ab.compare(record)
+    assert all(r["port"] is not None for r in result["rows"])
+    for m in ("bigan", "vae"):
+        assert os.path.exists(os.path.join(d, f"{m}_cf_metric_mat.npy"))
+
+
+def test_resume_skips_every_finished_stage(tiny_run):
+    d, first, mtimes, resumed = tiny_run
+    assert len(resumed["runs"]) == 2
+    assert {k: v["run"] for k, v in resumed["stages"].items()} == {k: 0 for k in first["stages"]}
+    assert resumed["scores"] == first["scores"]
+    for f, t in mtimes.items():
+        assert os.path.getmtime(os.path.join(d, f)) == t, f
+
+
+@pytest.mark.parametrize("arm", ["default", "seed"])
+def test_fresh_run_removes_stale_models(arm, tmp_path):
+    d = tmp_path / "D"
+    a = Path(str(d) + ("_seed2" if arm == "seed" else ""))
+    a.mkdir(parents=True)
+    d.mkdir(exist_ok=True)
+    shared = ("audio-mnist-vae.tar", "audio-mnist-digit-clf.tar", "audio-mnist-subject-clf.tar",
+              "audio-mnist-attribute-scm.tar")
+    own = ("audio-mnist-bigan.tar", "bigan_cf_metric_mat.npy", "bigan_int_metric_mat.npy")
+    for f in shared:
+        (d / f).write_bytes(b"stale")
+    for f in own:
+        (a / f).write_bytes(b"stale")
+    args = ab.parser.parse_args([str(d), *(["--seed", "2"] if arm == "seed" else [])])
+    removed = {os.path.basename(p) for p in ab.own_model_files(args)}
+    assert removed == set(own) | (set(shared) if arm == "default" else set())
+
+
+# -------------------------------------------------------------- compare
+
+
+def test_compare_passes_the_jax_records_and_values_inside_every_band():
+    for ref, bands in ((ab.JAX_BF16, ab.BF16_BANDS), (ab.JAX_F32_IDENTITY, ab.F32_IDENTITY_BANDS)):
+        assert ab.compare({"scores": copy.deepcopy(ref)}, ref, bands)["ok"]
+    inside = {**ab.JAX_BF16, "bigan_cf_digit_accuracy": 0.9833 - 0.029, "bigan_generated_accuracy": 0.9961 + 0.0039,
+              "scm_accent_nll": 0.6593 + 0.0099, "digit_clf_val_acc": 0.9901}
+    result = ab.compare({"scores": inside, "dtype": "bfloat16", "identity": False})
+    assert result["ok"] and [r["metric"] for r in result["rows"]] == list(ab.BF16_BANDS)
+
+
+OUTSIDE = [("bigan_cf_digit_accuracy", -0.031), ("bigan_generated_accuracy", -0.031), ("scm_accent_nll", 0.011),
+           ("scm_accent_nll", -0.011), ("digit_clf_val_acc", -0.011)]
+
+
+@pytest.mark.parametrize("metric,move", OUTSIDE, ids=[f"{k}{v:+g}" for k, v in OUTSIDE])
+def test_compare_names_a_bf16_metric_outside_its_band(metric, move):
+    scores = {**ab.JAX_BF16, metric: ab.JAX_BF16[metric] + move}
+    result = ab.compare({"scores": scores, "dtype": "bfloat16"})
+    assert not result["ok"] and result["missed"] == [metric]
+
+
+IDENTITY_OUTSIDE = [("bigan_cf_digit_accuracy", -0.031), ("vae_generated_accuracy", -0.031),
+                    ("subject_identity.vae", 0.051), ("mean_ratio.vae_int", -0.031)]
+
+
+@pytest.mark.parametrize("metric,move", IDENTITY_OUTSIDE, ids=[f"{k}{v:+g}" for k, v in IDENTITY_OUTSIDE])
+def test_compare_names_an_identity_metric_outside_its_band(metric, move):
+    scores = copy.deepcopy(ab.JAX_F32_IDENTITY)
+    if "." in metric:
+        key, m = metric.split(".")
+        scores[key][m] += move
+    else:
+        scores[metric] += move
+    result = ab.compare({"scores": scores, "dtype": "float32", "identity": True})
+    assert not result["ok"] and result["missed"] == [metric]
+
+
+def test_compare_names_a_broken_identity_split():
+    """Both identities inside their bands and the split broken: a reference
+    whose BiGAN keeps the subject only twice as often as its VAE."""
+    ref = copy.deepcopy(ab.JAX_F32_IDENTITY)
+    ref["subject_identity"].update(bigan=0.30, vae=0.15)
+    result = ab.compare({"scores": copy.deepcopy(ref)}, ref, ab.F32_IDENTITY_BANDS)
+    assert result["missed"] == ["bigan_identity_at_least_3x_vae"]
+
+
+def test_compare_misses_what_a_record_lacks():
+    result = ab.compare({"scores": {}, "dtype": "bfloat16"})
+    assert not result["ok"] and len(result["missed"]) == len(result["rows"]) == len(ab.BF16_BANDS)
+
+
+def test_windows_are_the_jax_logs_and_are_reported_not_gated():
+    """The JAX windows are the means of the committed JAX log's epochs; the
+    port's are read from its epoch rows and held within a factor of 2."""
+    text = (REPO / "docs" / "bf16_audio_r05" / "bigan_stage.log").read_text()
+    rows = [[int(e), float(g), float(x), 0.0] for e, g, x in
+            re.findall(r"epoch (\d+)/1200: D\(G\(z\)\)=(\S+) D\(E\(x\)\)=(\S+)", text)]
+    assert len(rows) == 1200
+    got = ab.windows(rows)
+    for (lo, hi), want in ab.JAX_BF16_WINDOWS.items():
+        np.testing.assert_allclose(got[f"{lo}-{hi}"], want, atol=5e-5)
+    halved = [[e, g / 1.9, x, r] for e, g, x, r in rows]
+    record = {"scores": {**ab.JAX_BF16, "windows": ab.windows(halved)}, "dtype": "bfloat16"}
+    result = ab.compare(record)
+    assert result["ok"] and result["windows_held"]
+    record["scores"]["windows"] = ab.windows([[e, g / 2.1, x, r] for e, g, x, r in rows])
+    result = ab.compare(record)
+    assert result["ok"] and not result["windows_held"]  # reported beside the bands, not one of them
+
+
+@pytest.mark.parametrize("text,parse,want", [
+    ("bigan: subject-identity accuracy after digit CF = 0.6002\nvae: subject-identity accuracy after digit CF "
+     "= 0.1015\n", ab.parse_identity, {"bigan": 0.6002, "vae": 0.1015}),
+    ("subject 60: bigan ratio 1.2443\nbigan: mean ratio 0.9855\nvae_int: mean ratio 0.9728\n", ab.parse_ratios,
+     {"bigan": 0.9855, "vae_int": 0.9728}),
+    ("[audio-scm] step 100/2000 nll=0.6591\n[audio-scm] step 2000/2000 nll=0.6593\n", qb.parse_scm,
+     {"nll": [[100, 0.6591], [2000, 0.6593]]}),
+    ("digit cf accuracy: 0.9833\n", qb.parse_score, {"digit cf accuracy": 0.9833}),
+])
+def test_parsers_read_the_clis_lines(text, parse, want):
+    assert parse(text) == want
+
+
+def test_report_prints_compare(tmp_path, capsys):
+    path = str(tmp_path / "r.json")
+    qb.write_record(path, {"scores": ab.JAX_BF16, "dtype": "bfloat16", "identity": False})
+    assert ab.main(["--report", path]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["compare"]["ok"] and line["record"] == path
+
+
+def test_report_reads_a_seed_arms_shared_stages_from_the_default_arm(tmp_path, capsys):
+    default = {"dirs": {"data": "D", "arm": "D"}, "seed": 0, "stages": {
+        "scm": {"printed": {"nll": [[2000, 0.6595]]}}, "clf": {"printed": {"val_acc": [1.0]}},
+        "bigan_score": {"printed": {"digit cf accuracy": 0.99}}}}
+    shared = {"cli": "x", "skipped": "artifact complete", "shared_from": "D"}
+    arm = {"dirs": {"data": "D", "arm": "D_seed1"}, "seed": 1, "stages": {
+        "scm": shared, "clf": shared, "bigan_score": {"printed": {"digit cf accuracy": 0.97}},
+        "generator_score": {"printed": {"generated digit accuracy": 0.99}}}}
+    paths = []
+    for name, rec in (("default", default), ("seed1", arm)):
+        rec["scores"] = ab.scores_of(rec["stages"])
+        paths.append(str(tmp_path / f"{name}.json"))
+        qb.write_record(paths[-1], rec)
+    assert ab.main(["--report", *paths]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert lines[1]["scores"]["scm_accent_nll"] == 0.6595 and lines[1]["scores"]["digit_clf_val_acc"] == 1.0
+    assert lines[1]["scores"]["bigan_cf_digit_accuracy"] == 0.97 and lines[1]["compare"]["ok"]
+    assert ab.main(["--report", paths[1]]) == 0  # alone: the shared stages' numbers are missing
+    assert json.loads(capsys.readouterr().out)["compare"]["missed"] == ["scm_accent_nll", "digit_clf_val_acc"]
+
+
+# ----------------------------------------------- the committed audio records
+
+
+AUDIO_RUNS = {p.name: p for p in sorted(RECORDS.glob("audio-*.json"))}
+
+
+def arm_flags(record):
+    """The driver's flags that gave ``record``'s command lines."""
+    flags = ["--epochs", str(record["epochs"]), "--vae-epochs", str(record["budgets"]["vae_epochs"])]
+    if record.get("init_std") is not None:
+        flags += ["--init-std", f"{record['init_std']:g}"]
+    if record["dtype"] == "bfloat16":
+        flags += ["--dtype", "bfloat16"]
+    flags += [*(["--no-vae"] if not record["vae"] else []), *(["--no-identity"] if not record["identity"] else []),
+              *(["--seed", str(record["seed"])] if record["seed"] else [])]
+    return flags
+
+
+@pytest.mark.parametrize("name", list(AUDIO_RUNS))
+def test_committed_audio_records_ran_the_drivers_command_lines(name, monkeypatch):
+    monkeypatch.chdir(REPO)
+    record = json.loads(AUDIO_RUNS[name].read_text())
+    args = ab.parser.parse_args([record["dirs"]["data"], *arm_flags(record)])
+    base = os.path.join(os.getcwd(), "")
+    want = {s.name: [t[len(base):] if t.startswith(base) else t for t in s.argv] + ["--device", "cuda"]
+            for s in ab.stages(args)}
+    ran = {k: v["argv"] for k, v in record["stages"].items() if "argv" in v}
+    assert "bigan" in ran and ran == {k: want[k] for k in ran}
+
+
+def test_the_bf16_arms_records_are_committed():
+    assert {"audio-bf16-1200.json", "audio-bf16-1200-seed1.json"} <= set(AUDIO_RUNS)
+
+
+# ------------------------------------- the MNIST battery's early game
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_committed_mnist_seed_records_ran_the_drivers_command_lines(seed, monkeypatch):
+    """The eight 10-epoch BiGANs of the early-game check ran the MNIST
+    driver's BiGAN stage at their seeds."""
+    monkeypatch.chdir(REPO)
+    record = json.loads((RECORDS / f"hard-10-seed{seed}.json").read_text())
+    args = qb.parser.parse_args(["--hard", "--epochs", "10", "--seed", str(seed)])
+    base, bigan = os.path.join(os.getcwd(), ""), {s.name: s for s in qb.stages(args)}["bigan"]
+    want = [t[len(base):] if t.startswith(base) else t for t in bigan.argv] + ["--device", "cuda"]
+    assert record["stages"]["bigan"]["argv"] == want
+    assert record["stages"]["bigan"]["launches"]["fused_encoder"] == 10 * 128  # one a step
+
+
+def early_game(record) -> float:
+    """``m``: the mean of the printed D(G(z)) over epochs 7-10 of the BiGAN stage."""
+    rows = record["stages"]["bigan"]["printed"]["epochs"]
+    return float(np.mean([r[1] for r in rows if 7 <= r[0] <= 10]))
+
+
+# ``m`` of each record, to the fourth decimal as PERF.md quotes it
+JAX_M = {"jax-cpu-hard-10.json": 0.0032, "jax-cpu-hard-10-seed1.json": 0.0319, "jax-cpu-hard-10-seed2.json": 0.0238}
+PORT_M = {"hard-600.json": 0.0161, "hard-600-seed1.json": 0.0145, "hard-10-rehearsal.json": 0.0295,
+          **dict(zip((f"hard-10-seed{s}.json" for s in range(8)),
+                     (0.0192, 0.0138, 0.0015, 0.0260, 0.0328, 0.0205, 0.0327, 0.0009)))}
+
+
+@pytest.mark.parametrize("name", [*JAX_M, *PORT_M])
+def test_early_game_of_each_committed_record(name):
+    want = {**JAX_M, **PORT_M}[name]
+    got = early_game(json.loads((RECORDS / name).read_text()))
+    assert got == pytest.approx(want, abs=5e-5)
+
+
+def test_early_game_decision_rule_reads_not_shown():
+    """Fixed before the runs: shown when every JAX seed's ``m`` lies below
+    every port seed's (the ``--fused`` arm left out). It is not: two port
+    seeds lie below JAX's seed 0, and JAX's seeds 1 and 2 above most of the
+    port's."""
+    jax_m = [early_game(json.loads((RECORDS / n).read_text())) for n in JAX_M]
+    port_m = [early_game(json.loads((RECORDS / n).read_text())) for n in PORT_M]
+    assert len(jax_m) == 3 and len(port_m) == 11
+    assert not max(jax_m) < min(port_m)
+    assert min(port_m) < min(jax_m) and max(jax_m) > float(np.median(port_m))

@@ -341,3 +341,20 @@ def test_quality_battery_raises_when_no_gpu_before_any_stage(monkeypatch, tmp_pa
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quality_battery.main([str(tmp_path / "D"), "--hard"])
     assert not (tmp_path / "D").exists()
+
+
+def test_sources_cover_the_audio_battery():
+    """Pin that the glob reaches the AudioMNIST battery."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert "imagecfgen_torch/tools/audio_battery.py" in names
+
+
+def test_audio_battery_raises_when_no_gpu_before_any_stage(monkeypatch, tmp_path):
+    """The AudioMNIST battery runs on the card by default: without one it
+    raises before its first stage and writes nothing."""
+    from imagecfgen_torch.tools import audio_battery
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        audio_battery.main([str(tmp_path / "D")])
+    assert not (tmp_path / "D").exists()
