@@ -1,4 +1,4 @@
-"""The decision rules of the quality batteries' three open faults, each fixed
+"""The decision rules of the quality batteries' open faults, each fixed
 before the runs that decide it, and the verdicts the committed records give.
 
     python tests/fault_verdicts.py --report [RECORDS_DIR]
@@ -18,6 +18,12 @@ are ``imagecfgen_torch/tools/battery_records/``'s:
 - ``jax_agreement_verdict``: the JAX package's BiGAN at ``E*`` on the CPU
   (``jax-cpu-hard-<E*>*.json``, from ``tests/jax_cpu_battery.py``) against the
   port's four seeds at ``E*``;
+- ``jax_rank_verdict``: the same JAX runs, seeds 0-3 (``jax-cpu-hard-<E*>.json``,
+  ``...-seed{1,2,3}.json``), ranked against the port's twelve seeds at
+  ``E*`` with TF32 off (``hard-<E*>-f32-seed{0..11}.json``), the decided
+  pool; beside it, without deciding anything, the same rule on the TF32
+  pool (``hard-<E*>-seed{0..11}.json``) and one rank test of TF32 on
+  against TF32 off;
 - ``audio_spread_verdict``: the AudioMNIST bf16 arm's CF at every committed
   seed (``audio-bf16-1200*.json``);
 - ``identity_verdict``: the float32 identity arm's subject identity after a
@@ -31,6 +37,7 @@ import json
 import os
 import re
 import sys
+from statistics import median
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +47,9 @@ CHANCE_LEFT = 0.5  # a BiGAN CF at or above it has left chance
 BUDGETS, FALLBACK = (20, 30, 40), 60
 SHOWN_CF, SHOWN_GENERATED, REFUTED_CF = 0.92, 0.90, 0.97
 AGREE_MARGIN, FAULT_MARGIN = 0.05, 0.10
+RANK_FAULT_P, RANK_FAULT_GAP = 0.01, 0.10  # one-sided p at most, median gap above
+RANK_AGREE_P, RANK_AGREE_GAP = 0.10, 0.15  # two-sided p at least, |median gap| at most
+RANK_JAX_SEEDS, RANK_PORT_SEEDS = 4, 12
 AUDIO_BF16_CF, AUDIO_BAND, AUDIO_MIN_INSIDE = 0.9833, 0.03, 4
 JAX_IDENTITY, IDENTITY_BAND = 0.6002, 0.05
 EDGE = 1e-9  # a reading printed at a bound lies on it, whatever the float sum's last bit
@@ -75,6 +85,33 @@ def jax_agreement_verdict(jax_cf: Sequence[float], port_cf: Sequence[float]) -> 
         return "agree"
     if jax_cf and all(j < lo - FAULT_MARGIN for j in jax_cf):
         return "port training fault"
+    return "unresolved"
+
+
+def rank_test(low: Sequence[float], high: Sequence[float]) -> Dict[str, float]:
+    """The exact Mann-Whitney test of ``low`` against ``high``: the
+    one-sided p that ``low`` lies lower, the two-sided p, and the median of
+    ``high`` less the median of ``low``."""
+    from scipy.stats import mannwhitneyu
+
+    return {"p_lower": float(mannwhitneyu(low, high, alternative="less", method="exact").pvalue),
+            "p_two_sided": float(mannwhitneyu(low, high, alternative="two-sided", method="exact").pvalue),
+            "median_gap": median(high) - median(low)}
+
+
+def jax_rank_verdict(jax_cf: Sequence[float], port_cf: Sequence[float]) -> str:
+    """"port training fault" when the exact one-sided Mann-Whitney p that
+    JAX's CFs lie lower is at most 0.01 and the port's median exceeds JAX's
+    by more than 0.10; "agree" when the exact two-sided p is at least 0.10
+    and the medians differ by at most 0.15; else "unresolved". Fewer than
+    four JAX seeds or twelve port seeds: "not run"."""
+    if len(jax_cf) < RANK_JAX_SEEDS or len(port_cf) < RANK_PORT_SEEDS:
+        return "not run"
+    t = rank_test(jax_cf, port_cf)
+    if t["p_lower"] <= RANK_FAULT_P + EDGE and t["median_gap"] > RANK_FAULT_GAP + EDGE:
+        return "port training fault"
+    if t["p_two_sided"] >= RANK_AGREE_P - EDGE and abs(t["median_gap"]) <= RANK_AGREE_GAP + EDGE:
+        return "agree"
     return "unresolved"
 
 
@@ -163,6 +200,7 @@ def report(records: str = RECORDS) -> List[Dict]:
                     "verdict": jax_agreement_verdict(jax_cf, cf[e_star])})
     else:
         out.append({"rule": "jax_agreement", "estar": e_star, "verdict": "not run"})
+    out.extend(rank_lines(records, e_star))
 
     bf16 = {os.path.basename(p): _score(_load(p), "bigan_cf_digit_accuracy")
             for p in sorted(glob.glob(j("audio-bf16-1200*.json")))}
@@ -182,6 +220,34 @@ def report(records: str = RECORDS) -> List[Dict]:
         out.append({"rule": "identity", "readings": ident, "mean_gap": gap, "verdict": verdict})
     else:
         out.append({"rule": "identity", "readings": ident, "verdict": "not run"})
+    return out
+
+
+def rank_lines(records: str, e_star: Optional[int]) -> List[Dict]:
+    """``jax_rank`` (JAX against the port with TF32 off: the verdict),
+    ``jax_rank_tf32`` (against the TF32 pool: reported, not decided) and
+    ``tf32_rank`` (TF32 on against off) at ``E*``, from the records present."""
+    def pool(names: Sequence[str]) -> Dict[str, float]:
+        got = {n: _score(_load(os.path.join(records, n)), "bigan_cf_digit_accuracy") for n in names}
+        return {n: v for n, v in got.items() if v is not None}
+
+    if e_star is None:
+        return [{"rule": r, "verdict": "not run"} for r in ("jax_rank", "jax_rank_tf32", "tf32_rank")]
+    jax = pool([f"jax-cpu-hard-{e_star}{'' if s == 0 else f'-seed{s}'}.json" for s in range(RANK_JAX_SEEDS)])
+    f32 = pool([f"hard-{e_star}-f32-seed{s}.json" for s in range(RANK_PORT_SEEDS)])
+    tf32 = pool([f"hard-{e_star}-seed{s}.json" for s in range(RANK_PORT_SEEDS)])
+    out = []
+    for rule, port in (("jax_rank", f32), ("jax_rank_tf32", tf32)):
+        verdict = jax_rank_verdict(list(jax.values()), list(port.values()))
+        line = {"rule": rule, "estar": e_star, "jax_cf": jax, "port_cf": port, "verdict": verdict}
+        if verdict != "not run":
+            line.update(rank_test(list(jax.values()), list(port.values())))
+        out.append(line)
+    line = {"rule": "tf32_rank", "estar": e_star, "f32_cf": f32, "tf32_cf": tf32}
+    if len(f32) >= RANK_PORT_SEEDS and len(tf32) >= RANK_PORT_SEEDS:
+        out.append({**line, **rank_test(list(f32.values()), list(tf32.values())), "verdict": "reported"})
+    else:
+        out.append({**line, "verdict": "not run"})
     return out
 
 

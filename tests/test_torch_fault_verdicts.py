@@ -45,6 +45,31 @@ def test_jax_agreement_rule(jax_cf, want):
     assert fv.jax_agreement_verdict(jax_cf, PORT) == want
 
 
+RANK_PORT = [0.5801, 0.4844, 0.5977, 0.7920, 0.45, 0.52, 0.55, 0.62, 0.66, 0.70, 0.74, 0.88]
+
+
+@pytest.mark.parametrize("jax_cf,port_cf,want", [
+    ([0.2793, 0.2729, 0.30, 0.25], RANK_PORT, "port training fault"),
+    ([0.50, 0.60, 0.70, 0.80], RANK_PORT, "agree"),
+    ([0.50, 0.51, 0.52, 0.53], [0.54, 0.55, 0.56, 0.57, 0.58, 0.59, 0.60, 0.61, 0.62, 0.63, 0.64, 0.65],
+     "unresolved"),
+    ([0.30, 0.30, 0.30, 0.30], RANK_PORT, "port training fault"),
+    ([0.50, 0.50, 0.60, 0.60], [0.50] * 6 + [0.60] * 6, "agree"),
+    ([0.40, 0.45, 0.62, 0.90], [0.70] * 12, "unresolved"),
+    ([0.2793, 0.2729, 0.30], RANK_PORT, "not run"),
+    ([0.2793, 0.2729, 0.30, 0.25], RANK_PORT[:11], "not run"),
+], ids=["all-jax-below", "interleaved", "p-small-gap-small", "tied-jax-below", "ties-across", "gap-too-wide",
+        "three-jax-seeds", "eleven-port-seeds"])
+def test_jax_rank_rule(jax_cf, port_cf, want):
+    assert fv.jax_rank_verdict(jax_cf, port_cf) == want
+
+
+def test_rank_test_is_exact():
+    t = fv.rank_test([0.1, 0.2, 0.3, 0.4], [0.5 + 0.01 * i for i in range(12)])
+    assert t["p_lower"] == pytest.approx(1 / 1820) and t["p_two_sided"] == pytest.approx(2 / 1820)
+    assert t["median_gap"] == pytest.approx(0.555 - 0.25)
+
+
 @pytest.mark.parametrize("cf,want", [
     ([0.9933, 0.9383, 0.99, 0.98, 0.97, 0.96], "spread"),
     ([0.9933, 0.9383, 0.94, 0.95, 0.99, 0.98], "unresolved"),
@@ -69,12 +94,18 @@ def test_identity_rule(readings, want):
 def test_report_reads_the_committed_records(capsys):
     assert fv.main(["--report"]) == 0
     lines = {r["rule"]: r for r in map(json.loads, capsys.readouterr().out.splitlines())}
-    assert set(lines) == {"estar", "tpu_precision", "jax_agreement", "audio_spread", "identity"}
+    assert set(lines) == {"estar", "tpu_precision", "jax_agreement", "jax_rank", "jax_rank_tf32", "tf32_rank",
+                          "audio_spread", "identity"}
     assert lines["estar"]["verdict"] == 40
     assert lines["estar"]["bigan_cf"]["40"] == PORT
     tpu = lines["tpu_precision"]
     assert tpu["epochs"] == [440, 440] and tpu["budget"] == [600, 600]
     assert tpu["reads_as"] == "shown" and tpu["verdict"] == "unresolved: below the budget"
+    rank = lines["jax_rank"]
+    assert len(rank["jax_cf"]) == 4 and len(rank["port_cf"]) == 12 and rank["verdict"] == "agree"
+    assert lines["jax_rank_tf32"]["verdict"] == "port training fault"
+    assert lines["tf32_rank"]["verdict"] == "reported"
+    assert len(lines["identity"]["readings"]) == 6 and lines["identity"]["verdict"] == "fault stands"
 
 
 def test_trained_epochs_of_a_whole_and_a_cut_stage(tmp_path):
@@ -89,4 +120,4 @@ def test_trained_epochs_of_a_whole_and_a_cut_stage(tmp_path):
 def test_report_says_not_run_without_records(tmp_path, capsys):
     assert fv.main(["--report", str(tmp_path)]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
-    assert [ln["verdict"] for ln in lines] == ["not run"] * 5
+    assert [ln["verdict"] for ln in lines] == ["not run"] * 8

@@ -281,9 +281,11 @@ RUNS = {"hard-600.json": [], "hard-600-fused.json": ["--fused"], "hard-600-seed1
         "hard-10-rehearsal.json": ["--epochs", "10"],
         # where the BiGAN leaves chance: each seed at 20 epochs, then resumed to 30 and 40
         **{f"hard-{e}-seed{s}.json": ["--epochs", str(e), "--seed", str(s)] for e in (20, 30, 40) for s in range(4)},
+        # more seeds at 40 epochs, trained there in one stage, for the rank test against the JAX package's
+        **{f"hard-40-seed{s}.json": ["--epochs", "40", "--seed", str(s)] for s in range(4, 12)},
         # the same at 40 epochs with TF32 off, in a directory of their own (its data's entries came with the
         # data from .battery_torch_hard, and are not this run's)
-        **{f"hard-40-f32-seed{s}.json": [".battery_torch_f32", "--epochs", "40", "--seed", str(s)] for s in range(4)}}
+        **{f"hard-40-f32-seed{s}.json": [".battery_torch_f32", "--epochs", "40", "--seed", str(s)] for s in range(12)}}
 
 
 # the TPU-precision witness's arms (tests/tpu_default_precision.py), whose
