@@ -28,7 +28,20 @@ are ``imagecfgen_torch/tools/battery_records/``'s:
   seed (``audio-bf16-1200*.json``);
 - ``identity_verdict``: the float32 identity arm's subject identity after a
   digit CF, every committed BiGAN run scored by the port's seed-0 subject
-  classifier (``audio-f32-1200-identity*.json``).
+  classifier (``audio-f32-1200-identity*.json``); beside it, reported and
+  deciding nothing, JAX's one reading's rank among them (``identity_rank``);
+- ``clf_trace_verdict``: the 60-way subject classifier's training run in
+  both packages on the CPU from one initialisation, seeds 0 and 1
+  (``clf-step-trace-subject.json``, from ``tests/clf_step_trace.py``);
+- ``audio_step_verdict``: the identity arm's first BiGAN steps in both
+  packages on the CPU from one state (``gan-step-trace-audio.json``, from
+  ``tests/gan_step_trace.py --family audio``), read at step 1; the distance's
+  growth over the traced steps is reported beside it, with the MNIST trace's
+  (``gan-step-trace-256.json``);
+- ``identity_scorer_verdict``: the identity metric of the JAX script and of
+  the port's CLI on the same JAX files with the same latents, with JAX's
+  subject classifier and with the port's (``identity-cross-score.json``,
+  from ``tests/identity_cross_score.py``).
 """
 from __future__ import annotations
 
@@ -52,6 +65,11 @@ RANK_AGREE_P, RANK_AGREE_GAP = 0.10, 0.15  # two-sided p at least, |median gap| 
 RANK_JAX_SEEDS, RANK_PORT_SEEDS = 4, 12
 AUDIO_BF16_CF, AUDIO_BAND, AUDIO_MIN_INSIDE = 0.9833, 0.03, 4
 JAX_IDENTITY, IDENTITY_BAND = 0.6002, 0.05
+CLF_FAULT_STEP1, CLF_AGREE_STEP1 = 1e-4, 1e-5  # the parameters' relative distance after step 1
+CLF_FAULT_ACC, CLF_AGREE_ACC = 0.10, 0.03  # final val_acc, port less JAX
+STEP_AGREE_PARAMS, STEP_AGREE_SCORES, STEP_FAULT = 1e-5, 1e-4, 1e-3
+SCORER_NEAR_TIE, SCORER_ROWS_PER_TIE = 1e-4, 1000  # top-two logits within; one such row in 1,000
+SCORER_LINES = ("bigan", "vae", "bigan_int")
 EDGE = 1e-9  # a reading printed at a bound lies on it, whatever the float sum's last bit
 
 
@@ -132,6 +150,58 @@ def identity_verdict(readings: Sequence[float]) -> Tuple[str, float]:
     gap = sum(readings) / len(readings) - JAX_IDENTITY
     inside = min(readings) <= JAX_IDENTITY <= max(readings) and abs(gap) <= IDENTITY_BAND + EDGE
     return ("spread" if inside else "fault stands"), gap
+
+
+def identity_rank(readings: Sequence[float], jax: float = JAX_IDENTITY) -> Dict[str, float]:
+    """JAX's one reading ranked among the port's: its rank from the top
+    among all of them (1: above every port reading) and the one-sided p of
+    a rank that high or higher if the port and JAX had one distribution."""
+    above = sum(r >= jax for r in readings)
+    return {"rank": above + 1, "of": len(readings) + 1, "p_jax_highest": (above + 1) / (len(readings) + 1)}
+
+
+def clf_trace_verdict(step1: Sequence[float], final_gap: Sequence[float]) -> str:
+    """``step1``: each seed's parameter distance after step 1; ``final_gap``:
+    each seed's final val_acc, the port's less JAX's. "fault" when a seed's
+    step-1 distance exceeds 1e-4, or every seed's gap exceeds 0.10 in the same
+    direction; "agree" when every step-1 distance is at most 1e-5 and every
+    gap at most 0.03; else "unresolved"."""
+    if any(d > CLF_FAULT_STEP1 for d in step1) or (final_gap and (
+            all(g > CLF_FAULT_ACC + EDGE for g in final_gap) or all(g < -CLF_FAULT_ACC - EDGE for g in final_gap))):
+        return "fault"
+    if all(d <= CLF_AGREE_STEP1 for d in step1) and all(abs(g) <= CLF_AGREE_ACC + EDGE for g in final_gap):
+        return "agree"
+    return "unresolved"
+
+
+def audio_step_verdict(distance: Mapping[str, float], score_gap: Sequence[float]) -> str:
+    """On step 1: "agree" when E's, G's and D's relative distances are each
+    at most 1e-5 and D(G(z)), D(E(x)) differ by at most 1e-4; "fault" when a
+    distance or a score gap exceeds 1e-3; else "unresolved"."""
+    parts = [distance[k] for k in ("E", "G", "D")]
+    gaps = [abs(g) for g in score_gap]
+    if any(v > STEP_FAULT for v in parts + gaps):
+        return "fault"
+    if all(v <= STEP_AGREE_PARAMS for v in parts) and all(g <= STEP_AGREE_SCORES for g in gaps):
+        return "agree"
+    return "unresolved"
+
+
+def identity_scorer_verdict(lines: Mapping[str, Mapping]) -> str:
+    """``lines``: for each printed line, ``{"jax": [hits, total], "port":
+    [hits, total], "near_ties": n}`` (``near_ties``: the rows whose subject
+    the two packages name differently and whose top-two logits lie within
+    1e-4 in either). "agree" when each of ``bigan``, ``vae`` and
+    ``bigan_int`` has the same total in both and its hits differ by no more
+    than its near ties, themselves at most one row in 1,000; else "fault"."""
+    for name in SCORER_LINES:
+        line = lines.get(name)
+        if line is None or line["jax"][1] != line["port"][1]:
+            return "fault"
+        ties = line.get("near_ties", 0)
+        if ties > line["jax"][1] / SCORER_ROWS_PER_TIE or abs(line["jax"][0] - line["port"][0]) > ties:
+            return "fault"
+    return "agree"
 
 
 # ---------------------------------------------------------------- records
@@ -218,8 +288,53 @@ def report(records: str = RECORDS) -> List[Dict]:
     if len(ident) >= 6:
         verdict, gap = identity_verdict(list(ident.values()))
         out.append({"rule": "identity", "readings": ident, "mean_gap": gap, "verdict": verdict})
+        out.append({"rule": "identity_rank", "jax": JAX_IDENTITY, **identity_rank(list(ident.values())),
+                    "verdict": "reported"})
     else:
         out.append({"rule": "identity", "readings": ident, "verdict": "not run"})
+        out.append({"rule": "identity_rank", "verdict": "not run"})
+    out.extend(identity_part_lines(records))
+    return out
+
+
+def identity_part_lines(records: str) -> List[Dict]:
+    """``clf_trace``, ``audio_step`` and ``identity_scorer`` from their
+    records in ``records``."""
+    j = lambda name: os.path.join(records, name)  # noqa: E731
+    out = []
+    clf = (_load(j("clf-step-trace-subject.json")) or {}).get("seeds", {})
+    seeds = {s: e for s, e in clf.items() if e.get("final_val_acc") is not None and e.get("step1")}
+    if {"0", "1"} <= set(seeds):
+        step1 = [seeds[s]["step1"]["distance"] for s in ("0", "1")]
+        final = {s: seeds[s]["final_val_acc"] for s in ("0", "1")}
+        gap = [final[s][1] - final[s][0] for s in ("0", "1")]
+        out.append({"rule": "clf_trace", "step1_distance": step1, "final_val_acc_jax_port": final,
+                    "final_gap": gap, "final_distance": [seeds[s]["rows"][-1]["distance"] for s in ("0", "1")],
+                    "verdict": clf_trace_verdict(step1, gap)})
+    else:
+        out.append({"rule": "clf_trace", "seeds": sorted(seeds), "verdict": "not run"})
+
+    step = _load(j("gan-step-trace-audio.json"))
+    if step and step.get("rows"):
+        first, rows = step["rows"][0], step["rows"]
+        gap = [p - q for p, q in zip(first["port"], first["jax"])]
+        mnist = (_load(j("gan-step-trace-256.json")) or {}).get("rows", [])
+        growth = lambda rs: {r["step"]: max(r["distance"].values()) for r in rs}  # noqa: E731
+        out.append({"rule": "audio_step", "steps_traced": len(rows), "step1_distance": first["distance"],
+                    "step1_score_gap": gap, "growth": growth(rows),
+                    "mnist_growth": {k: v for k, v in growth(mnist).items() if k <= len(rows)},
+                    "verdict": audio_step_verdict(first["distance"], gap)})
+    else:
+        out.append({"rule": "audio_step", "verdict": "not run"})
+
+    cross = (_load(j("identity-cross-score.json")) or {}).get("runs", {})
+    for clf_name in ("jax_clf", "port_clf"):
+        run = cross.get(clf_name)
+        if run:
+            out.append({"rule": "identity_scorer", "classifier": clf_name, "lines": run["lines"],
+                        "verdict": identity_scorer_verdict(run["lines"])})
+        else:
+            out.append({"rule": "identity_scorer", "classifier": clf_name, "verdict": "not run"})
     return out
 
 

@@ -91,21 +91,90 @@ def test_identity_rule(readings, want):
     assert gap == pytest.approx(sum(readings) / len(readings) - 0.6002)
 
 
+def test_identity_rank_of_jax_among_the_port_readings():
+    assert fv.identity_rank([0.4611, 0.5483, 0.5826, 0.3217, 0.0889, 0.3961]) == {
+        "rank": 1, "of": 7, "p_jax_highest": pytest.approx(1 / 7)}
+    assert fv.identity_rank([0.61, 0.6002, 0.2], jax=0.6002)["rank"] == 3  # a tie counts as above
+
+
+@pytest.mark.parametrize("step1,gap,want", [
+    ([1e-5, 2e-6], [0.03, -0.03], "agree"),
+    ([1.1e-5, 2e-6], [0.0, 0.0], "unresolved"),
+    ([1e-5, 2e-6], [0.031, 0.0], "unresolved"),
+    ([1e-4, 5e-5], [0.0, 0.0], "unresolved"),
+    ([1.01e-4, 2e-6], [0.0, 0.0], "fault"),
+    ([1e-6, 1e-6], [0.11, 0.101], "fault"),
+    ([1e-6, 1e-6], [-0.11, -0.12], "fault"),
+    ([1e-6, 1e-6], [0.11, -0.12], "unresolved"),
+    ([1e-6, 1e-6], [0.10, 0.15], "unresolved"),
+], ids=["agree-at-the-edges", "step1-just-above", "gap-just-above", "step1-at-the-fault-edge", "step1-fault",
+        "both-gaps-up", "both-gaps-down", "gaps-split", "one-gap-at-the-edge"])
+def test_clf_trace_rule(step1, gap, want):
+    assert fv.clf_trace_verdict(step1, gap) == want
+
+
+@pytest.mark.parametrize("dist,gap,want", [
+    ({"E": 1e-5, "G": 1e-5, "D": 1e-5}, [1e-4, -1e-4], "agree"),
+    ({"E": 1.1e-5, "G": 1e-6, "D": 1e-6}, [0.0, 0.0], "unresolved"),
+    ({"E": 1e-6, "G": 1e-6, "D": 1e-6}, [2e-4, 0.0], "unresolved"),
+    ({"E": 1e-6, "G": 1e-3, "D": 1e-6}, [0.0, 0.0], "unresolved"),
+    ({"E": 1e-6, "G": 1e-6, "D": 1.01e-3}, [0.0, 0.0], "fault"),
+    ({"E": 1e-6, "G": 1e-6, "D": 1e-6}, [0.0, -1.1e-3], "fault"),
+], ids=["agree-at-the-edges", "a-part-just-above", "a-score-just-above", "a-part-at-the-fault-edge",
+        "a-part-fault", "a-score-fault"])
+def test_audio_step_rule(dist, gap, want):
+    assert fv.audio_step_verdict(dist, gap) == want
+
+
+def scorer_lines(bigan=(100, 100, 0), vae=(50, 50, 0), bigan_int=(70, 70, 0), total=5000):
+    return {name: {"jax": [j, total], "port": [p, total], "near_ties": t}
+            for name, (j, p, t) in (("bigan", bigan), ("vae", vae), ("bigan_int", bigan_int))}
+
+
+@pytest.mark.parametrize("lines,want", [
+    (scorer_lines(), "agree"),
+    (scorer_lines(bigan=(100, 101, 0)), "fault"),
+    (scorer_lines(bigan=(100, 101, 1)), "agree"),
+    (scorer_lines(vae=(50, 45, 5)), "agree"),
+    (scorer_lines(vae=(50, 44, 6)), "fault"),
+    (scorer_lines(bigan_int=(70, 72, 1)), "fault"),
+    ({**scorer_lines(), "vae": {"jax": [50, 5000], "port": [50, 4999], "near_ties": 0}}, "fault"),
+    ({k: v for k, v in scorer_lines().items() if k != "vae"}, "fault"),
+], ids=["equal", "one-off-no-tie", "one-off-one-tie", "ties-at-one-in-1000", "ties-above-one-in-1000",
+        "two-off-one-tie", "totals-differ", "a-line-missing"])
+def test_identity_scorer_rule(lines, want):
+    assert fv.identity_scorer_verdict(lines) == want
+
+
 def test_report_reads_the_committed_records(capsys):
     assert fv.main(["--report"]) == 0
-    lines = {r["rule"]: r for r in map(json.loads, capsys.readouterr().out.splitlines())}
+    lines = {r["rule"] + (":" + r["classifier"] if "classifier" in r else ""): r
+             for r in map(json.loads, capsys.readouterr().out.splitlines())}
     assert set(lines) == {"estar", "tpu_precision", "jax_agreement", "jax_rank", "jax_rank_tf32", "tf32_rank",
-                          "audio_spread", "identity"}
+                          "audio_spread", "identity", "identity_rank", "clf_trace", "audio_step",
+                          "identity_scorer:jax_clf", "identity_scorer:port_clf"}
     assert lines["estar"]["verdict"] == 40
     assert lines["estar"]["bigan_cf"]["40"] == PORT
     tpu = lines["tpu_precision"]
-    assert tpu["epochs"] == [440, 440] and tpu["budget"] == [600, 600]
-    assert tpu["reads_as"] == "shown" and tpu["verdict"] == "unresolved: below the budget"
+    assert tpu["records"] == ["hard-560-tpu-precision.json", "hard-440-tpu-precision-seed1.json"]
+    assert tpu["epochs"] == [560, 440] and tpu["budget"] == [600, 600]
+    assert tpu["bigan_cf"] == [0.998, 0.7222]
+    assert tpu["reads_as"] == "unresolved" and tpu["verdict"] == "unresolved: below the budget"
     rank = lines["jax_rank"]
     assert len(rank["jax_cf"]) == 4 and len(rank["port_cf"]) == 12 and rank["verdict"] == "agree"
     assert lines["jax_rank_tf32"]["verdict"] == "port training fault"
     assert lines["tf32_rank"]["verdict"] == "reported"
     assert len(lines["identity"]["readings"]) == 6 and lines["identity"]["verdict"] == "fault stands"
+    assert lines["identity_rank"]["rank"] == 1 and lines["identity_rank"]["p_jax_highest"] == pytest.approx(1 / 7)
+    clf = lines["clf_trace"]
+    assert clf["step1_distance"][0] > fv.CLF_FAULT_STEP1 and clf["verdict"] == "fault"
+    step = lines["audio_step"]
+    assert step["steps_traced"] == 8 and step["verdict"] == "unresolved"
+    assert step["step1_distance"]["D"] == pytest.approx(1.3627e-5, rel=1e-3)
+    assert set(step["mnist_growth"]) == set(step["growth"])
+    for name in ("jax_clf", "port_clf"):
+        scorer = lines["identity_scorer:" + name]
+        assert scorer["verdict"] == fv.identity_scorer_verdict(scorer["lines"]) == "agree"
 
 
 def test_trained_epochs_of_a_whole_and_a_cut_stage(tmp_path):
@@ -120,4 +189,4 @@ def test_trained_epochs_of_a_whole_and_a_cut_stage(tmp_path):
 def test_report_says_not_run_without_records(tmp_path, capsys):
     assert fv.main(["--report", str(tmp_path)]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
-    assert [ln["verdict"] for ln in lines] == ["not run"] * 8
+    assert [ln["verdict"] for ln in lines] == ["not run"] * 13

@@ -291,7 +291,8 @@ RUNS = {"hard-600.json": [], "hard-600-fused.json": ["--fused"], "hard-600-seed1
 # the TPU-precision witness's arms (tests/tpu_default_precision.py), whose
 # BiGAN stage a call's time limit cut: its command line is the first line of
 # the stage's output, committed beside the record
-WITNESS_RUNS = {"hard-440-tpu-precision.json": [], "hard-440-tpu-precision-seed1.json": ["--seed", "1"]}
+WITNESS_RUNS = {"hard-440-tpu-precision.json": [], "hard-440-tpu-precision-seed1.json": ["--seed", "1"],
+                "hard-560-tpu-precision.json": []}
 
 
 @pytest.mark.parametrize("name", [*RUNS, *WITNESS_RUNS])

@@ -32,6 +32,7 @@ tensor's distance plus 1e-5 of its norm; the losses and D scores within
 2^-8 relative.
 """
 import contextlib
+import functools
 import os
 from collections import Counter
 
@@ -43,14 +44,16 @@ import torch
 from jax import lax
 from test_torch_gan_trainer import B, batch_for, jax_state, port_trainer, to_torch
 from test_torch_gan_trainer_modes import jax_tree
-from test_torch_train_layers import MaskQueue, draw_masks
+from test_torch_train_layers import MaskQueue, draw_masks, narrow_config
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import tpu_default_precision as tdp
 from imagecfgen_tpu.models import layers as jlayers
 from imagecfgen_torch.core.convert import gan_state_from_jax
 from imagecfgen_torch.models import bigan as tbigan
+from imagecfgen_torch.models import layers as tlayers
 from imagecfgen_torch.tools import quality_battery as qb
+from imagecfgen_torch.train.gan_trainer import GANTrainConfig, GANTrainer
 
 D_UPDATES = 3
 
@@ -267,12 +270,95 @@ def test_other_matrix_products_raise_inside_the_witness():
 
 
 def test_witness_restores_the_modules():
-    forwards = {c: c.forward for c in (tbigan.Encoder, tbigan.Generator, tbigan.Discriminator)}
-    kernel = tbigan.fused_encoder_forward
+    forwards = {c: c.forward for c in (tbigan.Encoder, tbigan.Generator, tbigan.Discriminator,
+                                       tlayers.AttributeVectors)}
+    kernel, convs = tbigan.fused_encoder_forward, (tlayers.conv2d, tlayers.conv_transpose2d)
     with tdp.tpu_default_precision():
-        assert tbigan.Encoder.forward is not forwards[tbigan.Encoder]
-        assert tbigan.fused_encoder_forward is not kernel
+        assert all(c.forward is not f for c, f in forwards.items())
+        assert tbigan.fused_encoder_forward is not kernel and tlayers.conv2d is not convs[0]
     assert {c: c.forward for c in forwards} == forwards and tbigan.fused_encoder_forward is kernel
+    assert (tlayers.conv2d, tlayers.conv_transpose2d) == convs
+
+
+@contextlib.contextmanager
+def whole_forward_witness(counts):
+    """The witness as it first stood: each of E, G and D runs its whole
+    forward inside :class:`tdp.TpuDefaultPrecision`, which sees every torch
+    call and routes the convs and matmuls."""
+    saved = [(cls, cls.forward) for cls in (tbigan.Encoder, tbigan.Generator, tbigan.Discriminator)]
+    kernel = tbigan.fused_encoder_forward
+
+    def entered(cls, forward):
+        def wrapped(self, *args, **kwargs):
+            if type(self) is not cls:
+                return forward(self, *args, **kwargs)
+            with tdp.TpuDefaultPrecision(counts):
+                return forward(self, *args, **kwargs)
+        return wrapped
+
+    for cls, forward in saved:
+        cls.forward = entered(cls, forward)
+    tbigan.fused_encoder_forward = functools.partial(tdp.fused_encoder_by_layer, kernel, counts)
+    try:
+        yield
+    finally:
+        for cls, forward in saved:
+            cls.forward = forward
+        tbigan.fused_encoder_forward = kernel
+
+
+def test_cut_witness_steps_as_the_whole_forward_witness_bit_for_bit():
+    """The witness that routes only the convs and matmuls takes the same
+    three steps as the one whose function mode saw every call of E, G and
+    D: equal parameters, moments, batch-norm buffers and metrics, bit for
+    bit, and the same tally of wrapped calls."""
+    cfg, rng = narrow_config(tbigan, "mnist"), np.random.default_rng(3)
+
+    def trainer():
+        return GANTrainer(tbigan.BiGAN(cfg, "cpu", torch.Generator().manual_seed(3)),
+                          GANTrainConfig(batch_size=B, d_updates_per_g_update=D_UPDATES), device="cpu")
+
+    probe = trainer()
+    noise = []
+    for _ in range(3):
+        batch = to_torch(batch_for(probe.model.cfg, rng))
+        masks = [[torch.from_numpy(m) for m in draw_masks(probe.model.discriminator, n, rng)]
+                 for n in probe.d_batches(B)]
+        noise.append((batch, torch.from_numpy(rng.normal(size=(B, 1, 1, 32)).astype(np.float32)), masks))
+    out = {}
+    for name, ctx in (("whole", whole_forward_witness), ("cut", tdp.tpu_default_precision)):
+        tr, counts = trainer(), {}
+        with ctx(counts):
+            metrics = [tr.train_step(b, z=z, masks=m) for b, z, m in noise]
+        out[name] = (tr.state_dict(), metrics, counts)
+    flat = lambda tree: {k: v for k, v in _leaves(tree)}  # noqa: E731
+    whole, cut = flat(out["whole"][0]), flat(out["cut"][0])
+    assert whole.keys() == cut.keys() and len(whole) > 40
+    for k, v in whole.items():
+        assert torch.equal(cut[k], v) if isinstance(v, torch.Tensor) else cut[k] == v, k
+    for a, b in zip(out["whole"][1], out["cut"][1]):
+        assert {k: v.item() for k, v in a.items()} == {k: v.item() for k, v in b.items()}
+    assert out["whole"][2] == out["cut"][2] and out["cut"][2]["conv"] > 0
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def test_witness_refuses_a_dense_layer():
+    """The witness routes no dense layer: a BiGAN whose plans hold one (the
+    AudioMNIST generator's stem) raises rather than compute in float32."""
+    g = tbigan.Generator(tbigan.audio_mnist_bigan_config(d=1, latent_dim=8), "cpu")
+    attrs = {a.name: torch.eye(a.n_categories)[:2] for a in g.cfg.attr_spec.categorical}
+    with tdp.tpu_default_precision(), pytest.raises(NotImplementedError, match="dense"):
+        g(torch.zeros(2, 8), attrs)
 
 
 TINY = ["--device", "cpu", "--train-glyphs", "32", "--test-glyphs", "32", "--epochs", "1", "--finetune-steps", "1",

@@ -10,16 +10,22 @@ convolution and matmul of a program runs at ``lax.Precision.DEFAULT``: one
 pass of the matrix unit with both operands rounded to bfloat16, the products
 and their sums in float32, a float32 result. That holds for the forward ops
 and for the convolutions and matmuls of both gradients alike. Here every
-conv, transposed conv, dense layer and matmul run inside the BiGAN's
+conv, transposed conv and matmul run inside the BiGAN's
 ``Encoder``, ``Generator`` and ``Discriminator`` (not a subclass's, such as the VAE's
 decoder) takes that arithmetic:
 
-- :class:`TpuDefaultPrecision`, a torch function mode that each of the three
-  modules' ``forward`` enters, routes ``F.conv2d``, ``F.conv_transpose2d``,
-  ``F.linear`` and the matmuls through :class:`_Conv` and :class:`_Matmul`,
-  which round both operands to bfloat16 (in float32 tensors), compute in
-  float32, keep the rounded operands, and round the incoming gradient before
-  the two backward ops. Any other op that multiplies matrices raises.
+- Each of the three modules' ``forward`` marks the witness active while it
+  runs. The layer library's two conv functions (``models.layers.conv2d``,
+  ``conv_transpose2d``), replaced while the witness is on, then route their
+  convs through :class:`_Conv`, which rounds both operands to bfloat16 (in
+  float32 tensors), computes in float32, keeps the rounded operands, and
+  rounds the incoming gradient before the two backward ops. The attribute
+  vectors' matmuls run inside :class:`TpuDefaultPrecision`, a torch function
+  mode that routes ``F.conv2d``, ``F.conv_transpose2d``, ``F.linear`` and the
+  matmuls likewise (:class:`_Matmul`) and raises on any other op that
+  multiplies matrices. A module whose plan holds a dense layer raises: the
+  MNIST BiGAN has none. Only the convs and matmuls pay the witness's Python:
+  the host's dispatch bounds the BiGAN's step on the card.
 - The encoder's ``fused_encoder`` calls (the training step's recompute and
   every encoding score) run the trunk one conv a launch, each on its rounded
   input and weights (:func:`fused_encoder_by_layer`): each conv's input is
@@ -45,6 +51,7 @@ import contextlib
 import functools
 import os
 import sys
+import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -191,33 +198,67 @@ def fused_encoder_by_layer(kernel, counts: Dict[str, int], trunk_params, feats: 
     return x.reshape(b, -1)
 
 
+def _active_conv(plain, kind, rounded, counts, active):
+    """``models.layers``' NHWC conv ``plain``, through :class:`_Conv` while
+    ``active[0]`` (a witness module's forward runs)."""
+    def conv(x, w, stride=1, padding=0, **kw):
+        if not active[0]:
+            return plain(x, w, stride, padding, **kw)
+        counts[kind] = counts.get(kind, 0) + 1
+        return rounded(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding, **kw).permute(0, 2, 3, 1)
+    return conv
+
+
 @contextlib.contextmanager
 def tpu_default_precision(counts: Optional[Dict[str, int]] = None):
     """Inside it the BiGAN's E, G and D compute every conv and matmul at a
     TPU's default precision; yields the tally of the wrapped calls."""
-    from imagecfgen_torch.models import bigan
+    from imagecfgen_torch.models import bigan, layers
 
     counts = {} if counts is None else counts
+    active = [0]  # how many witness modules' forwards are running
+    checked = weakref.WeakSet()  # the modules found free of dense layers
     saved = [(cls, cls.forward) for cls in (bigan.Encoder, bigan.Generator, bigan.Discriminator)]
-    kernel = bigan.fused_encoder_forward
+    vectors = layers.AttributeVectors.forward
+    kernel, convs = bigan.fused_encoder_forward, (layers.conv2d, layers.conv_transpose2d)
 
     def entered(cls, forward):
         @functools.wraps(forward)
         def wrapped(self, *args, **kwargs):
             if type(self) is not cls:  # a subclass, such as the VAE's decoder
                 return forward(self, *args, **kwargs)
-            with TpuDefaultPrecision(counts):
+            if self not in checked:
+                if any(op[0] == "dense" for m in self.modules() if isinstance(m, layers.PlanSequential)
+                       for op in m.plan):
+                    raise NotImplementedError(f"a dense layer in the {cls.__name__} under the witness")
+                checked.add(self)
+            active[0] += 1
+            try:
                 return forward(self, *args, **kwargs)
+            finally:
+                active[0] -= 1
         return wrapped
+
+    @functools.wraps(vectors)
+    def rounded_vectors(self, attrs):
+        if not active[0]:
+            return vectors(self, attrs)
+        with TpuDefaultPrecision(counts):
+            return vectors(self, attrs)
 
     for cls, forward in saved:
         cls.forward = entered(cls, forward)
+    layers.AttributeVectors.forward = rounded_vectors
+    layers.conv2d = _active_conv(convs[0], "conv", _conv2d, counts, active)
+    layers.conv_transpose2d = _active_conv(convs[1], "conv_transpose", _conv_transpose2d, counts, active)
     bigan.fused_encoder_forward = functools.partial(fused_encoder_by_layer, kernel, counts)
     try:
         yield counts
     finally:
         for cls, forward in saved:
             cls.forward = forward
+        layers.AttributeVectors.forward = vectors
+        layers.conv2d, layers.conv_transpose2d = convs
         bigan.fused_encoder_forward = kernel
 
 
