@@ -41,7 +41,16 @@ are ``imagecfgen_torch/tools/battery_records/``'s:
 - ``identity_scorer_verdict``: the identity metric of the JAX script and of
   the port's CLI on the same JAX files with the same latents, with JAX's
   subject classifier and with the port's (``identity-cross-score.json``,
-  from ``tests/identity_cross_score.py``).
+  from ``tests/identity_cross_score.py``);
+- ``audio_step_bisect_verdict``: step 1 of that trace taken apart against
+  float64 (its ``bisect``, from ``tests/gan_step_trace.py --family audio
+  --bisect``);
+- ``identity_precision_verdict``: the identity arm under
+  ``tests/tpu_default_precision.py --family audio``
+  (``audio-tpu-precision-1200-identity[-seedN].json``) ranked above the
+  readings ``identity_verdict`` reads; beside it, reported and deciding
+  nothing, JAX's rank among the witness's readings, their ``vae`` and
+  ``bigan_int`` lines, and each seed's ``compare()`` rows.
 """
 from __future__ import annotations
 
@@ -70,6 +79,8 @@ CLF_FAULT_ACC, CLF_AGREE_ACC = 0.10, 0.03  # final val_acc, port less JAX
 STEP_AGREE_PARAMS, STEP_AGREE_SCORES, STEP_FAULT = 1e-5, 1e-4, 1e-3
 SCORER_NEAR_TIE, SCORER_ROWS_PER_TIE = 1e-4, 1000  # top-two logits within; one such row in 1,000
 SCORER_LINES = ("bigan", "vae", "bigan_int")
+BISECT_TOL = 1e-5  # a relative distance from float64, between the packages, or of a part's parameters
+PRECISION_P_SHOWN, PRECISION_P_NOT, PRECISION_MIN_SEEDS = 0.05, 0.25, 4
 EDGE = 1e-9  # a reading printed at a bound lies on it, whatever the float sum's last bit
 
 
@@ -204,6 +215,50 @@ def identity_scorer_verdict(lines: Mapping[str, Mapping]) -> str:
     return "agree"
 
 
+def audio_step_bisect_verdict(tensors: Sequence[Mapping], parts: Mapping[str, Mapping]) -> str:
+    """``tensors``: for each parameter tensor and gradient of step 1 (the
+    bisection's rows), its relative distance from float64 in each package
+    (``jax``, ``port``), between them (``port_vs_jax``) and between them
+    outside its sign-differing elements (``port_vs_jax_outside``), the kink
+    flips on its path (``kink_flips_on_path``) and the sign-differing
+    elements whose |g| is at or above their sum's rounding
+    (``unexplained``); ``parts``: E's, G's and D's step-1 parameter distance
+    (``distance``) and the same outside the elements whose Adam step changed
+    direction (``outside``). "code" when some tensor's port gradient lies
+    more than 1e-5 from float64 while JAX's lies within 1e-5, with no kink
+    flip on its path; "rounding" when every tensor whose packages differ by
+    more than 1e-5 has a kink flip on its path, or differs by at most 1e-5
+    outside its sign-differing elements with none unexplained, and every
+    part whose parameters differ by more than 1e-5 differs by at most 1e-5
+    outside its changed directions; else "unresolved"."""
+    if any(t["port"] > BISECT_TOL and t["jax"] <= BISECT_TOL and not t["kink_flips_on_path"] for t in tensors):
+        return "code"
+    grads = all(t["kink_flips_on_path"] or (t["port_vs_jax_outside"] <= BISECT_TOL and not t["unexplained"])
+                for t in tensors if t["port_vs_jax"] > BISECT_TOL)
+    params = all(p["outside"] <= BISECT_TOL for p in parts.values() if p["distance"] > BISECT_TOL)
+    return "rounding" if grads and params else "unresolved"
+
+
+def identity_precision_verdict(witness: Sequence[float], tf32: Sequence[float]) -> Tuple[str, Dict[str, float]]:
+    """The witness's subject identities ``witness`` ranked above the TF32
+    arm's ``tf32`` (exact Mann-Whitney, one-sided). ("arithmetic", test)
+    when p is at most 0.05 and the witness's median lies within 0.05 of
+    JAX's 0.6002; ("not arithmetic", test) when p exceeds 0.25 or the
+    witness's median lies below the TF32 one; else ("unresolved", test).
+    Fewer than four witness readings: ("not run", {})."""
+    from scipy.stats import mannwhitneyu
+
+    if len(witness) < PRECISION_MIN_SEEDS:
+        return "not run", {}
+    test = {"p_higher": float(mannwhitneyu(witness, tf32, alternative="greater", method="exact").pvalue),
+            "witness_median": median(witness), "tf32_median": median(tf32)}
+    if test["p_higher"] <= PRECISION_P_SHOWN + EDGE and abs(test["witness_median"] - JAX_IDENTITY) <= IDENTITY_BAND + EDGE:
+        return "arithmetic", test
+    if test["p_higher"] > PRECISION_P_NOT or test["witness_median"] < test["tf32_median"]:
+        return "not arithmetic", test
+    return "unresolved", test
+
+
 # ---------------------------------------------------------------- records
 
 CHECKPOINT_EVERY = 10  # the BiGAN trainer's checkpoint cadence, in epochs
@@ -278,13 +333,7 @@ def report(records: str = RECORDS) -> List[Dict]:
     out.append({"rule": "audio_spread", "bigan_cf": bf16,
                 "verdict": audio_spread_verdict(list(bf16.values())) if len(bf16) >= 6 else "not run"})
 
-    ident = {}
-    for p in sorted(glob.glob(j("audio-f32-1200-identity*.json"))):
-        if re.search(r"rehearsal", p):
-            continue
-        value = (_score(_load(p), "subject_identity") or {}).get("bigan")
-        if value is not None:
-            ident[os.path.basename(p)] = value
+    ident = identity_readings(records, "audio-f32-1200-identity*.json")
     if len(ident) >= 6:
         verdict, gap = identity_verdict(list(ident.values()))
         out.append({"rule": "identity", "readings": ident, "mean_gap": gap, "verdict": verdict})
@@ -294,7 +343,43 @@ def report(records: str = RECORDS) -> List[Dict]:
         out.append({"rule": "identity", "readings": ident, "verdict": "not run"})
         out.append({"rule": "identity_rank", "verdict": "not run"})
     out.extend(identity_part_lines(records))
+    out.append(identity_precision_line(records, ident))
     return out
+
+
+def identity_readings(records: str, pattern: str, line: str = "bigan") -> Dict[str, float]:
+    """The subject identity ``line`` of each record of ``pattern`` in
+    ``records`` (rehearsals left out), by file name."""
+    out = {}
+    for p in sorted(glob.glob(os.path.join(records, pattern))):
+        if re.search(r"rehearsal", p):
+            continue
+        value = (_score(_load(p), "subject_identity") or {}).get(line)
+        if value is not None:
+            out[os.path.basename(p)] = value
+    return out
+
+
+def identity_precision_line(records: str, tf32: Mapping[str, float]) -> Dict:
+    """``identity_precision`` from the witness's records in ``records``
+    against ``tf32`` (``identity_verdict``'s readings)."""
+    pattern = "audio-tpu-precision-1200-identity*.json"
+    witness = identity_readings(records, pattern)
+    verdict, test = identity_precision_verdict(list(witness.values()), list(tf32.values()))
+    line = {"rule": "identity_precision", "witness": witness, **test, "verdict": verdict}
+    if verdict == "not run":
+        return line
+    sys.path.insert(0, REPO)
+    from imagecfgen_torch.tools.audio_battery import compare
+
+    seeds = {}
+    for name in witness:
+        rows = compare(_load(os.path.join(records, name)))["rows"]
+        seeds[name] = {r["metric"]: [r["port"], r["ok"]] for r in rows
+                       if r["metric"].startswith(("bigan_cf", "bigan_generated", "mean_ratio"))}
+    return {**line, "jax_rank": identity_rank(list(witness.values())),
+            **{f"witness_{k}": identity_readings(records, pattern, k) for k in ("vae", "bigan_int")},
+            "seeds": seeds}
 
 
 def identity_part_lines(records: str) -> List[Dict]:
@@ -326,6 +411,21 @@ def identity_part_lines(records: str) -> List[Dict]:
                     "verdict": audio_step_verdict(first["distance"], gap)})
     else:
         out.append({"rule": "audio_step", "verdict": "not run"})
+
+    bisect = (step or {}).get("bisect")
+    if bisect:
+        tensors = bisect["tensors"]
+        worst = lambda key: max(tensors, key=lambda t: t[key])  # noqa: E731
+        out.append({"rule": "audio_step_bisect", "step1_parts": bisect["step1_parts"],
+                    "kink_flips": {pkg: sum(r["kink_flips"][pkg] for r in bisect["layers"]) for pkg in ("jax", "port")},
+                    "worst_port": {k: worst("port")[k] for k in ("update", "part", "tensor", "jax", "port")},
+                    "worst_port_vs_jax": {k: worst("port_vs_jax")[k] for k in ("update", "part", "tensor", "port_vs_jax",
+                                                                              "port_vs_jax_outside", "kink_flips_on_path")},
+                    "sign_differs": sum(t["sign_differs"] for t in tensors),
+                    "unexplained": sum(t["unexplained"] for t in tensors),
+                    "verdict": audio_step_bisect_verdict(tensors, bisect["step1_parts"])})
+    else:
+        out.append({"rule": "audio_step_bisect", "verdict": "not run"})
 
     cross = (_load(j("identity-cross-score.json")) or {}).get("runs", {})
     for clf_name in ("jax_clf", "port_clf"):

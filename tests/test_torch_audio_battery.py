@@ -354,13 +354,24 @@ def arm_flags(record):
 
 @pytest.mark.parametrize("name", list(AUDIO_RUNS))
 def test_committed_audio_records_ran_the_drivers_command_lines(name, monkeypatch):
+    """Each stage a committed record ran has the command line the driver
+    gives it now; a record of the TPU-precision witness's arm
+    (``tests/tpu_default_precision.py --family audio``) through the
+    witness's driver, in its own arm directory."""
+    import contextlib
+
+    import tpu_default_precision as tdp
+
     monkeypatch.chdir(REPO)
     record = json.loads(AUDIO_RUNS[name].read_text())
-    args = ab.parser.parse_args([record["dirs"]["data"], *arm_flags(record)])
-    base = os.path.join(os.getcwd(), "")
-    want = {s.name: [t[len(base):] if t.startswith(base) else t for t in s.argv] + ["--device", "cuda"]
-            for s in ab.stages(args)}
+    witness = "tpu_precision" in record
+    with (tdp.witness_driver("audio") if witness else contextlib.nullcontext(ab)) as driver:
+        args = driver.parser.parse_args([record["dirs"]["data"], *arm_flags(record)])
+        base = os.path.join(os.getcwd(), "")
+        want = {s.name: [t[len(base):] if t.startswith(base) else t for t in s.argv] + ["--device", "cuda"]
+                for s in driver.stages(args)}
     ran = {k: v["argv"] for k, v in record["stages"].items() if "argv" in v}
+    assert not witness or record["tpu_precision"] == tdp.SEMANTICS
     assert "bigan" in ran and ran == {k: want[k] for k in ran}
 
 

@@ -146,13 +146,69 @@ def test_identity_scorer_rule(lines, want):
     assert fv.identity_scorer_verdict(lines) == want
 
 
+def bisect_row(port=1e-6, jax=1e-6, apart=1e-6, outside=None, flips=0, unexplained=0):
+    return {"update": "D_real", "part": "D", "tensor": "dx.conv_0_kernel", "port": port, "jax": jax,
+            "port_vs_jax": apart, "port_vs_jax_outside": apart if outside is None else outside,
+            "kink_flips_on_path": flips, "unexplained": unexplained}
+
+
+def bisect_parts(d=1e-6, outside=None):
+    return {"E": {"distance": 1e-7, "outside": 1e-7}, "G": {"distance": 1e-7, "outside": 1e-7},
+            "D": {"distance": d, "outside": d if outside is None else outside}}
+
+
+@pytest.mark.parametrize("rows,parts,want", [
+    ([bisect_row()], bisect_parts(), "rounding"),
+    ([bisect_row(port=1.1e-5, jax=1e-5, apart=2e-5)], bisect_parts(), "code"),
+    ([bisect_row(port=1.1e-5, jax=1e-5, apart=2e-5, flips=1)], bisect_parts(), "rounding"),
+    ([bisect_row(port=1.1e-5, jax=1.1e-5, apart=2e-5, outside=1e-5)], bisect_parts(), "rounding"),
+    ([bisect_row(port=1e-5, jax=1e-6, apart=1.1e-5, outside=1.1e-5)], bisect_parts(), "unresolved"),
+    ([bisect_row(apart=2e-5, outside=1e-6, unexplained=1)], bisect_parts(), "unresolved"),
+    ([bisect_row(apart=2e-5, outside=1e-3, unexplained=3, flips=2)], bisect_parts(), "rounding"),
+    ([bisect_row()], bisect_parts(1.36e-5, 1e-5), "rounding"),
+    ([bisect_row()], bisect_parts(1.36e-5, 1.1e-5), "unresolved"),
+    ([bisect_row(), bisect_row(port=3e-5, jax=2e-6, flips=4), bisect_row(port=2e-5, jax=1e-6)], bisect_parts(),
+     "code"),
+], ids=["all-near", "port-off-jax-at-the-edge", "a-kink-on-the-path", "outside-at-the-edge", "outside-just-above",
+        "an-unexplained-sign", "kink-covers-all", "parts-outside-at-the-edge", "parts-outside-just-above",
+        "one-tensor-without-a-kink"])
+def test_audio_step_bisect_rule(rows, parts, want):
+    assert fv.audio_step_bisect_verdict(rows, parts) == want
+
+
+TF32_IDENTITY = [0.4611, 0.5483, 0.5826, 0.3217, 0.0889, 0.3961]
+
+
+@pytest.mark.parametrize("witness,want", [
+    ([0.59, 0.60, 0.61, 0.62], "arithmetic"),
+    ([0.6502] * 4, "arithmetic"),
+    ([0.70, 0.71, 0.72, 0.73], "unresolved"),
+    ([0.4611, 0.5483, 0.5826, 0.3217], "not arithmetic"),
+    ([0.10, 0.20, 0.30, 0.40], "not arithmetic"),
+    ([0.35, 0.47, 0.55, 0.60, 0.62], "unresolved"),
+    ([0.59, 0.60, 0.61], "not run"),
+], ids=["above-every-reading", "median-at-the-edge", "median-too-high", "same-readings", "median-below",
+        "between", "three-seeds"])
+def test_identity_precision_rule(witness, want):
+    verdict, test = fv.identity_precision_verdict(witness, TF32_IDENTITY)
+    assert verdict == want
+    if want == "not run":
+        return
+    assert test["tf32_median"] == pytest.approx((0.3961 + 0.4611) / 2)
+    if witness[:2] == [0.59, 0.60]:
+        assert test["p_higher"] == pytest.approx(1 / 210)  # 4 of 10 all on top: 1 / C(10, 4)
+    if want == "unresolved" and witness[0] == 0.35:
+        assert fv.PRECISION_P_SHOWN < test["p_higher"] <= fv.PRECISION_P_NOT
+
+
 def test_report_reads_the_committed_records(capsys):
     assert fv.main(["--report"]) == 0
     lines = {r["rule"] + (":" + r["classifier"] if "classifier" in r else ""): r
              for r in map(json.loads, capsys.readouterr().out.splitlines())}
     assert set(lines) == {"estar", "tpu_precision", "jax_agreement", "jax_rank", "jax_rank_tf32", "tf32_rank",
                           "audio_spread", "identity", "identity_rank", "clf_trace", "audio_step",
-                          "identity_scorer:jax_clf", "identity_scorer:port_clf"}
+                          "audio_step_bisect", "identity_scorer:jax_clf", "identity_scorer:port_clf",
+                          "identity_precision"}
     assert lines["estar"]["verdict"] == 40
     assert lines["estar"]["bigan_cf"]["40"] == PORT
     tpu = lines["tpu_precision"]
@@ -175,6 +231,17 @@ def test_report_reads_the_committed_records(capsys):
     for name in ("jax_clf", "port_clf"):
         scorer = lines["identity_scorer:" + name]
         assert scorer["verdict"] == fv.identity_scorer_verdict(scorer["lines"]) == "agree"
+    bisect = lines["audio_step_bisect"]
+    assert bisect["step1_parts"]["D"]["distance"] == pytest.approx(step["step1_distance"]["D"], rel=1e-4)
+    assert bisect["step1_parts"]["D"]["outside"] == pytest.approx(1.0298e-5, rel=1e-3)
+    assert bisect["kink_flips"]["jax"] > 0 and bisect["kink_flips"]["port"] > 0
+    assert bisect["verdict"] == "unresolved"
+    prec = lines["identity_precision"]
+    assert len(prec["witness"]) == 4 and set(prec["seeds"]) == set(prec["witness"])
+    assert prec["p_higher"] == pytest.approx(0.6190, abs=1e-4) and prec["witness_median"] < prec["tf32_median"]
+    assert prec["verdict"] == "not arithmetic" and prec["jax_rank"]["rank"] == 1
+    assert set(lines["identity"]["readings"]) == {f"audio-f32-1200-identity{s}.json" for s in (
+        "", "-run2", "-run3", "-seed1", "-seed2", "-seed3")}  # the witness's records are not among them
 
 
 def test_trained_epochs_of_a_whole_and_a_cut_stage(tmp_path):
@@ -189,4 +256,4 @@ def test_trained_epochs_of_a_whole_and_a_cut_stage(tmp_path):
 def test_report_says_not_run_without_records(tmp_path, capsys):
     assert fv.main(["--report", str(tmp_path)]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
-    assert [ln["verdict"] for ln in lines] == ["not run"] * 13
+    assert [ln["verdict"] for ln in lines] == ["not run"] * 15

@@ -17,7 +17,10 @@ return float32.
 One step of the narrow MNIST BiGAN (every width an eighth, latent 32, batch
 8, ``d_updates_per_g_update=3``: an E+G update and two D updates) runs four
 times from one state, batch, ``z`` and dropout masks: JAX in float32, JAX at
-default precision, the port in float32, the port under the witness.
+default precision, the port in float32, the port under the witness. One step
+of the AudioMNIST BiGAN at d = 2 (its generator's dense stem included; no
+dropout, no batch norm) runs three times: JAX at default precision, the port
+in float32 and under the witness.
 Tolerances. The two default-precision steps round the same operands, but
 float32 sums in another order (batch norm's statistics differ by 1e-6
 relative between the packages) put a few operands on the other side of a
@@ -32,6 +35,7 @@ tensor's distance plus 1e-5 of its norm; the losses and D scores within
 2^-8 relative.
 """
 import contextlib
+import dataclasses
 import functools
 import os
 from collections import Counter
@@ -47,8 +51,11 @@ from test_torch_gan_trainer_modes import jax_tree
 from test_torch_train_layers import MaskQueue, draw_masks, narrow_config
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import gan_step_trace as gst
 import tpu_default_precision as tdp
+from imagecfgen_tpu.models import bigan as jbigan
 from imagecfgen_tpu.models import layers as jlayers
+from imagecfgen_tpu.train import gan_trainer as jgt
 from imagecfgen_torch.core.convert import gan_state_from_jax
 from imagecfgen_torch.models import bigan as tbigan
 from imagecfgen_torch.models import layers as tlayers
@@ -61,7 +68,11 @@ D_UPDATES = 3
 @contextlib.contextmanager
 def jax_default_precision():
     """Every ``conv_general_dilated`` and ``dot_general`` traced inside it,
-    forward and in both gradients, on bfloat16 values in float32."""
+    forward and in both gradients, on bfloat16 values in float32. JAX's
+    caches are cleared on the way in and out: ``jnp`` functions keep their
+    traces by shape, so a trace made on either side of the substitution
+    would otherwise serve the other (a later float32 step at the same shapes
+    would round its dots)."""
     from jax._src.lax import convolution as conv_mod
     from jax._src.lax import lax as lax_mod
 
@@ -80,6 +91,7 @@ def jax_default_precision():
 
     names = [(jax.lax, "conv_general_dilated", conv, tpu_conv), (conv_mod, "conv_general_dilated", conv, tpu_conv),
              (jax.lax, "dot_general", dot, tpu_dot), (lax_mod, "dot_general", dot, tpu_dot)]
+    jax.clear_caches()
     for mod, name, _, new in names:
         setattr(mod, name, new)
     try:
@@ -87,6 +99,7 @@ def jax_default_precision():
     finally:
         for mod, name, old, _ in names:
             setattr(mod, name, old)
+        jax.clear_caches()
 
 
 ROUNDED_OPS = ("aten.convolution", "aten.convolution_backward", "aten.mm", "aten.addmm", "aten.bmm",
@@ -273,11 +286,13 @@ def test_witness_restores_the_modules():
     forwards = {c: c.forward for c in (tbigan.Encoder, tbigan.Generator, tbigan.Discriminator,
                                        tlayers.AttributeVectors)}
     kernel, convs = tbigan.fused_encoder_forward, (tlayers.conv2d, tlayers.conv_transpose2d)
+    dense = (tlayers.F, tlayers.fused_dense_lrelu)
     with tdp.tpu_default_precision():
         assert all(c.forward is not f for c, f in forwards.items())
         assert tbigan.fused_encoder_forward is not kernel and tlayers.conv2d is not convs[0]
+        assert tlayers.F is not dense[0] and tlayers.fused_dense_lrelu is not dense[1]
     assert {c: c.forward for c in forwards} == forwards and tbigan.fused_encoder_forward is kernel
-    assert (tlayers.conv2d, tlayers.conv_transpose2d) == convs
+    assert (tlayers.conv2d, tlayers.conv_transpose2d) == convs and (tlayers.F, tlayers.fused_dense_lrelu) == dense
 
 
 @contextlib.contextmanager
@@ -352,13 +367,90 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def test_witness_refuses_a_dense_layer():
-    """The witness routes no dense layer: a BiGAN whose plans hold one (the
-    AudioMNIST generator's stem) raises rather than compute in float32."""
-    g = tbigan.Generator(tbigan.audio_mnist_bigan_config(d=1, latent_dim=8), "cpu")
-    attrs = {a.name: torch.eye(a.n_categories)[:2] for a in g.cfg.attr_spec.categorical}
-    with tdp.tpu_default_precision(), pytest.raises(NotImplementedError, match="dense"):
-        g(torch.zeros(2, 8), attrs)
+@pytest.mark.parametrize("plan", [(("dense", 6),), (("dense", 6), ("lrelu", 0.2))], ids=["dense", "dense-lrelu"])
+def test_dense_layer_and_its_gradients_round_their_operands(plan):
+    """A plan's dense layer inside a witness module (a generator whose plan
+    is the layer alone, its input z and one continuous attribute): the layer
+    library's ``F.linear`` and ``fused_dense_lrelu`` take the rounded
+    operands, and both gradients the rounded incoming gradient."""
+    import torch.nn.functional as F
+
+    from imagecfgen_torch.core.attributes import AttributeSpec
+
+    cfg = dataclasses.replace(tbigan.audio_mnist_bigan_config(d=1, latent_dim=8), gen_plan=plan,
+                              attr_spec=AttributeSpec.create(level=0))
+    g = tbigan.Generator(cfg, "cpu", torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(6)
+    z, level = torch.randn(3, 8, generator=gen).requires_grad_(), torch.randn(3, generator=gen)
+    counts = {}
+    with tdp.tpu_default_precision(counts):
+        y = g(z, {"level": level})
+    assert counts == {"linear": 1}
+    dy = torch.randn(y.shape, generator=gen)
+    y.backward(dy)
+    w, b = g.trunk.dense_0_kernel, g.trunk.dense_0_bias
+    feats = tdp.round_bf16(torch.cat([z.detach(), level.reshape(-1, 1)], -1))
+    pre = feats @ tdp.round_bf16(w.detach()).t() + b.detach()
+    want = F.leaky_relu(pre, 0.2) if len(plan) > 1 else pre
+    torch.testing.assert_close(y.detach(), want, rtol=1e-6, atol=1e-6)
+    gy = tdp.round_bf16(dy * (torch.where(pre >= 0, 1.0, 0.2) if len(plan) > 1 else 1.0))
+    torch.testing.assert_close(w.grad, gy.t() @ feats, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(z.grad, (gy @ tdp.round_bf16(w.detach()))[:, :8], rtol=1e-6, atol=1e-6)
+    plain = F.linear(torch.cat([z.detach(), level.reshape(-1, 1)], -1), w.detach(), b.detach())
+    assert not torch.equal(y.detach(), F.leaky_relu(plain, 0.2) if len(plan) > 1 else plain)
+    with torch.no_grad():  # outside a witness module's forward the layer is the plain one
+        assert torch.equal(tlayers.F.linear(feats, w), F.linear(feats, w))
+
+
+def test_audio_witness_step_follows_jax_at_default_precision():
+    """One AudioMNIST BiGAN step (d = 2, latent 32, batch 8) from one state,
+    batch and ``z``: the witness's step against JAX's at default precision.
+    The audio BiGAN has no dropout and no batch norm, so the two round the
+    same operands and part only where float32 sums in another order put an
+    operand on the other side of a bfloat16 rounding. Over E's and G's Adam
+    moments (the E+G update: every conv, transposed conv, dense layer and
+    matmul of E, G and D, forward and backward) the witness lies within 1e-3
+    of the port's float32 step's distance from JAX's default one. D's two
+    updates follow E(x) and G(z) after that update, where an element whose
+    gradient is rounding noise takes Adam's first step in the other
+    direction (a few of G's do), so D's moments are held only nearer JAX's
+    default step than float32's; the metrics within 2^-8 relative."""
+    cfg_of = lambda mod: mod.audio_mnist_bigan_config(d=2, latent_dim=32)  # noqa: E731
+    rng = np.random.default_rng(2)
+    model = tbigan.BiGAN(cfg_of(tbigan), "cpu", torch.Generator().manual_seed(2))
+    with torch.no_grad():  # O(1) activations: every kernel at unit fan-in variance
+        for name, p in model.named_parameters():
+            if name.endswith("_kernel"):
+                p.normal_(0.0, float(np.prod(p.shape[1:] if "convT" not in name else
+                                             (p.shape[0], *p.shape[2:]))) ** -0.5,
+                          generator=torch.Generator().manual_seed(len(name) + p.numel()))
+    jtr = jgt.GANTrainer(jbigan.BiGAN(cfg_of(jbigan)), jgt.GANTrainConfig(batch_size=B))
+    pE, pG, pD = (gst.jax_params(m.state_dict()) for m in (model.encoder, model.generator, model.discriminator))
+    st0 = jgt.GANState(params_E=pE, params_G=pG, vars_D={"params": pD, "batch_stats": {}},
+                       opt_eg=jtr.tx_eg.init({"E": pE, "G": pG}), opt_d=jtr.tx_d.init(pD),
+                       step=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(2))
+    batch = batch_for(cfg_of(tbigan), rng)
+    z = np.asarray(jax.random.normal(jax.random.split(st0.rng, 9)[1], (B, 1, 1, 32)))
+    with jax_default_precision():
+        st1, ref = jax.jit(lambda st, b: jtr.train_step(st, b))(st0, jax.tree_util.tree_map(jnp.asarray, batch))
+    default, ref = moments(gan_state_from_jax(jax_tree(st1))), {k: float(v) for k, v in ref.items()}
+    out = {}
+    for name, ctx in (("f32", contextlib.nullcontext), ("witness", tdp.tpu_default_precision)):
+        tr = GANTrainer(tbigan.BiGAN(cfg_of(tbigan), "cpu"), GANTrainConfig(batch_size=B), device="cpu")
+        tr.load_state_dict(gan_state_from_jax(jax_tree(st0)))
+        assert all(torch.equal(v, model.state_dict()[k]) for k, v in tr.model.state_dict().items())
+        counts = {}
+        with ctx(counts) if name == "witness" else ctx():
+            got = tr.train_step(to_torch(batch), z=torch.from_numpy(z), masks=[[], [], [], []])
+        out[name] = moments(tr.state_dict()), {k: v.item() for k, v in got.items()}, counts
+    counts = out["witness"][2]
+    assert counts["linear"] == 2 and counts["conv_transpose"] == 2 * 5  # G's stem and deconvs, twice
+    for k, v in ref.items():
+        np.testing.assert_allclose(out["witness"][1][k], v, rtol=2.0 ** -8, err_msg=k)
+    norm = lambda d: float(np.sqrt(sum(float((v ** 2).sum()) for v in d.values())))  # noqa: E731
+    mu = lambda name, opt: {k: v - default[k] for k, v in out[name][0].items() if k[:2] == (opt, "mu")}  # noqa: E731
+    assert norm(mu("witness", "opt_eg")) <= 1e-3 * norm(mu("f32", "opt_eg"))
+    assert norm(mu("witness", "opt_d")) <= 0.8 * norm(mu("f32", "opt_d"))
 
 
 TINY = ["--device", "cpu", "--train-glyphs", "32", "--test-glyphs", "32", "--epochs", "1", "--finetune-steps", "1",
@@ -389,3 +481,19 @@ def test_witness_runs_the_drivers_stages_in_its_own_arm(tmp_path):
     assert os.path.exists(os.path.join(arm, "mnist-bigan.tar")) and not os.path.exists(
         os.path.join(d + "_seed1", "mnist-bigan.tar"))
     assert qb.arm_dir(qb.parser.parse_args([d, "--seed", "1"])) == d + "_seed1"  # the driver restored
+
+
+def test_audio_witness_drives_the_identity_arm_in_its_own_directory():
+    """``--family audio``: ``audio_battery``'s own parser and stages with the
+    float32 identity arm's flags (a flag given again takes its place), in
+    ``DIR_tpu_precision_seedN``; the driver restored afterwards."""
+    from imagecfgen_torch.tools import audio_battery as ab
+
+    with tdp.witness_driver("audio") as driver:
+        assert driver is ab
+        args = ab.parser.parse_args(tdp.AUDIO_ARM + ["D", "--seed", "2"])
+        assert ab.arm_dir(args) == os.path.abspath("D") + "_tpu_precision_seed2"
+        assert (args.init_std, args.epochs) == (0.01, 1200) and not args.no_identity
+        assert {"bigan", "subject_clf", "cf_classifier_metric", "cf_eval"} <= {s.name for s in ab.stages(args)}
+        assert ab.parser.parse_args(tdp.AUDIO_ARM + ["--epochs", "3"]).epochs == 3
+    assert ab.arm_dir(args) == os.path.abspath("D") + "_seed2"

@@ -1,9 +1,13 @@
-"""The port's MNIST battery with the BiGAN computed as a TPU computes float32
-at its default precision: the witness of whether the JAX package's TPU record
-(``RESULTS.md:454-461``) owes its scores to the TPU's arithmetic.
+"""The port's MNIST and AudioMNIST batteries with the BiGAN computed as a TPU
+computes float32 at its default precision: the witness of whether the JAX
+package's TPU records (the MNIST hard battery, ``RESULTS.md:454-461``; the
+AudioMNIST float32 identity arm, ``RESULTS.md:332-372``) owe their scores to
+the TPU's arithmetic.
 
     python tests/tpu_default_precision.py [DIR] --hard [--seed 1] [--epochs 600] [--resume] [--stages a,b]
+    python tests/tpu_default_precision.py --family audio [DIR] [--seed 1] [--resume] [--stages a,b]
     python -m imagecfgen_torch.tools.quality_battery --report DIR_tpu_precision/battery-record.json
+    python -m imagecfgen_torch.tools.audio_battery --report DIR/battery-record.json DIR_tpu_precision/battery-record.json
 
 The JAX package asks for no precision anywhere, so on a TPU every float32
 convolution and matmul of a program runs at ``lax.Precision.DEFAULT``: one
@@ -19,13 +23,16 @@ decoder) takes that arithmetic:
   ``conv_transpose2d``), replaced while the witness is on, then route their
   convs through :class:`_Conv`, which rounds both operands to bfloat16 (in
   float32 tensors), computes in float32, keeps the rounded operands, and
-  rounds the incoming gradient before the two backward ops. The attribute
-  vectors' matmuls run inside :class:`TpuDefaultPrecision`, a torch function
-  mode that routes ``F.conv2d``, ``F.conv_transpose2d``, ``F.linear`` and the
-  matmuls likewise (:class:`_Matmul`) and raises on any other op that
-  multiplies matrices. A module whose plan holds a dense layer raises: the
-  MNIST BiGAN has none. Only the convs and matmuls pay the witness's Python:
-  the host's dispatch bounds the BiGAN's step on the card.
+  rounds the incoming gradient before the two backward ops. The plans' dense
+  layers (the AudioMNIST generator's stem) go through :func:`_linear` the
+  same way (:class:`_Matmul`, as ``jnp.dot`` without a precision runs on a
+  TPU): the layer library's ``F.linear`` and ``fused_dense_lrelu`` are
+  replaced while the witness is on. The attribute vectors' matmuls run
+  inside :class:`TpuDefaultPrecision`, a torch function mode that routes
+  ``F.conv2d``, ``F.conv_transpose2d``, ``F.linear`` and the matmuls likewise
+  and raises on any other op that multiplies matrices. Only the convs and
+  matmuls pay the witness's Python: the host's dispatch bounds the MNIST
+  BiGAN's step on the card.
 - The encoder's ``fused_encoder`` calls (the training step's recompute and
   every encoding score) run the trunk one conv a launch, each on its rounded
   input and weights (:func:`fused_encoder_by_layer`): each conv's input is
@@ -39,19 +46,22 @@ does, up to the order of the float32 sums. Nothing else changes: batch norm,
 the activations, the losses, Adam, the SCM, the classifier and the VAE stay
 float32.
 
-The battery runs through ``imagecfgen_torch.tools.quality_battery``'s own
-``main``, its stages and command lines, in an arm directory of its own
-(``DIR_tpu_precision``, ``DIR_tpu_precision_seedN``) that shares DIR's data,
-SCM, classifier and VAE. The record says ``"tpu_precision"``, and each stage's
-entry holds the wrapped calls it made by kind (``tpu_precision_calls``).
+The battery runs through its driver's own ``main``, its stages and command
+lines (``imagecfgen_torch.tools.quality_battery``; with ``--family audio``,
+``imagecfgen_torch.tools.audio_battery`` with the float32 identity arm's
+flags, ``--init-std 0.01 --epochs 1200``, and its identity stages), in an
+arm directory of its own (``DIR_tpu_precision``, ``DIR_tpu_precision_seedN``)
+that shares DIR's data, SCM, classifiers and VAE. The record says
+``"tpu_precision"``, and each stage's entry holds the wrapped calls it made by
+kind (``tpu_precision_calls``).
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import os
 import sys
-import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -60,6 +70,7 @@ from torch.overrides import TorchFunctionMode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARM = "_tpu_precision"
+AUDIO_ARM = ["--init-std", "0.01", "--epochs", "1200"]  # the float32 identity arm's flags
 SEMANTICS = {"operands": "bfloat16, round to nearest even", "products_and_sums": "float32",
              "modules": ["Encoder", "Generator", "Discriminator"], "gradients": "the same"}
 
@@ -209,6 +220,35 @@ def _active_conv(plain, kind, rounded, counts, active):
     return conv
 
 
+class _ActiveFunctional:
+    """``torch.nn.functional`` as ``models.layers`` sees it under the
+    witness: ``linear`` (a plan's dense layer) through :func:`_linear` while
+    ``active[0]``, every other name the module's own."""
+
+    def __init__(self, counts: Dict[str, int], active):
+        self.counts, self.active = counts, active
+
+    def __getattr__(self, name):
+        return getattr(F, name)
+
+    def linear(self, x, w, b=None):
+        if not self.active[0]:
+            return F.linear(x, w, b)
+        self.counts["linear"] = self.counts.get("linear", 0) + 1
+        return _linear(x, w, b)
+
+
+def _active_dense_lrelu(plain, counts, active):
+    """``models.layers``' ``fused_dense_lrelu`` ``plain``: a dense layer and
+    its LeakyReLU, the layer through :func:`_linear` while ``active[0]``."""
+    def dense_lrelu(x, w, b, slope):
+        if not active[0]:
+            return plain(x, w, b, slope)
+        counts["linear"] = counts.get("linear", 0) + 1
+        return F.leaky_relu(_linear(x, w, b), slope)
+    return dense_lrelu
+
+
 @contextlib.contextmanager
 def tpu_default_precision(counts: Optional[Dict[str, int]] = None):
     """Inside it the BiGAN's E, G and D compute every conv and matmul at a
@@ -217,21 +257,16 @@ def tpu_default_precision(counts: Optional[Dict[str, int]] = None):
 
     counts = {} if counts is None else counts
     active = [0]  # how many witness modules' forwards are running
-    checked = weakref.WeakSet()  # the modules found free of dense layers
     saved = [(cls, cls.forward) for cls in (bigan.Encoder, bigan.Generator, bigan.Discriminator)]
     vectors = layers.AttributeVectors.forward
     kernel, convs = bigan.fused_encoder_forward, (layers.conv2d, layers.conv_transpose2d)
+    functional, dense_lrelu = layers.F, layers.fused_dense_lrelu
 
     def entered(cls, forward):
         @functools.wraps(forward)
         def wrapped(self, *args, **kwargs):
             if type(self) is not cls:  # a subclass, such as the VAE's decoder
                 return forward(self, *args, **kwargs)
-            if self not in checked:
-                if any(op[0] == "dense" for m in self.modules() if isinstance(m, layers.PlanSequential)
-                       for op in m.plan):
-                    raise NotImplementedError(f"a dense layer in the {cls.__name__} under the witness")
-                checked.add(self)
             active[0] += 1
             try:
                 return forward(self, *args, **kwargs)
@@ -251,6 +286,8 @@ def tpu_default_precision(counts: Optional[Dict[str, int]] = None):
     layers.AttributeVectors.forward = rounded_vectors
     layers.conv2d = _active_conv(convs[0], "conv", _conv2d, counts, active)
     layers.conv_transpose2d = _active_conv(convs[1], "conv_transpose", _conv_transpose2d, counts, active)
+    layers.F = _ActiveFunctional(counts, active)
+    layers.fused_dense_lrelu = _active_dense_lrelu(dense_lrelu, counts, active)
     bigan.fused_encoder_forward = functools.partial(fused_encoder_by_layer, kernel, counts)
     try:
         yield counts
@@ -259,17 +296,21 @@ def tpu_default_precision(counts: Optional[Dict[str, int]] = None):
             cls.forward = forward
         layers.AttributeVectors.forward = vectors
         layers.conv2d, layers.conv_transpose2d = convs
+        layers.F, layers.fused_dense_lrelu = functional, dense_lrelu
         bigan.fused_encoder_forward = kernel
 
 
 @contextlib.contextmanager
-def witness_driver():
-    """``quality_battery`` with the witness's arm directory, its record key
-    and each stage's tally; yields the module."""
+def witness_driver(family: str = "mnist"):
+    """The battery driver of ``family`` (``quality_battery``, or
+    ``audio_battery`` for ``"audio"``) with the witness's arm directory, its
+    record key and each stage's tally; yields the driver's module. Both
+    drivers run their stages through ``quality_battery``'s runner."""
     sys.path.insert(0, REPO)
-    from imagecfgen_torch.tools import quality_battery as qb
+    from imagecfgen_torch.tools import audio_battery, quality_battery as qb
 
-    arm, run_battery, run_stage = qb.arm_dir, qb.run_battery, qb.run_stage
+    driver = audio_battery if family == "audio" else qb
+    arm, run_battery, run_stage = driver.arm_dir, driver.run_battery, qb.run_stage
     counts: Dict[str, int] = {}
 
     def tallied(stage, args, cwd):
@@ -278,21 +319,25 @@ def witness_driver():
         entry["tpu_precision_calls"] = dict(counts)
         return entry
 
-    qb.arm_dir = lambda args: qb.data_dir(args) + ARM + arm(args)[len(qb.data_dir(args)):]
-    qb.run_battery = lambda args, argv, stages, path, header, *rest: run_battery(
+    driver.arm_dir = lambda args: driver.data_dir(args) + ARM + arm(args)[len(driver.data_dir(args)):]
+    driver.run_battery = lambda args, argv, stages, path, header, *rest: run_battery(
         args, argv, stages, path, {**header, "tpu_precision": SEMANTICS}, *rest)
     qb.run_stage = tallied
     try:
         with tpu_default_precision(counts):
-            yield qb
+            yield driver
     finally:
-        qb.arm_dir, qb.run_battery, qb.run_stage = arm, run_battery, run_stage
+        driver.arm_dir, driver.run_battery, qb.run_stage = arm, run_battery, run_stage
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    with witness_driver() as qb:
-        return qb.main(argv)
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--family", choices=("mnist", "audio"), default="mnist")
+    args, rest = p.parse_known_args(sys.argv[1:] if argv is None else argv)
+    if args.family == "audio":
+        rest = AUDIO_ARM + rest  # the arm's flags; a flag given again takes its place
+    with witness_driver(args.family) as driver:
+        return driver.main(rest)
 
 
 if __name__ == "__main__":
